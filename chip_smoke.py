@@ -18,8 +18,25 @@ Phases, each fatal on failure:
      parameters moved and stay finite;
   4. from one saved state, one noise draw and one augmentation draw, run
      one full-width step with the fused kernels and one with the plain
-     version; the loss dicts and the gradients agree.
+     version; the loss dicts and the gradients agree;
+  5. data parallel, two gloo ranks sharing the card (NCCL refuses two ranks
+     on one device), `phiseg_7_5_synth` at full width with the global batch
+     of 12 split 6 + 6: one f32 step and one f64 step from a saved state
+     with injected noise and no augmentation, each held against the 1-rank
+     step on the whole batch (losses, gradients before the optimiser, BN
+     running statistics; f64 tensor by tensor, f32 by the all-parameter
+     relative L2, with each f32 step's distance from the f64 one printed);
+     the 2-rank sharded sampler against the unsharded one; K3 against the
+     plain version of the global batch, timed; then DP_STEPS bf16 steps with
+     augmentation through the Trainer with a mesh: losses finite, K1, K2 and
+     K3 launched once per step on each rank, rank states bitwise equal;
+  6. `--mesh 1` through the train CLI for 3 steps: one rank on NCCL, K1, K2
+     and K3 launched once per step in it;
+  7. the 100-sample prior sampler on the model trained in phase 3, for
+     B=1 and B=8: ms/image (device time with the host kept ahead, and per
+     call) and the peak device memory.
 
+Spawned ranks have a join timeout; a rank that fails or hangs fails the run.
 The second-to-last line is a JSON object with one entry per kernel; the last
 is {"ok": true, "device": {...}}. Artifacts go to logs/chip_smoke/.
 """
@@ -36,12 +53,38 @@ import sys
 import time
 
 NUM_STEPS = 30
+DP_STEPS = 10
+DP_WORLD = 2
+RANK_TIMEOUT = 420  # seconds for a spawn of ranks, start to join
+SAMPLES = 100
 EXPERIMENT = "phiseg_7_5_synth"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "logs", "chip_smoke")
 KERNEL_SOURCE = "phiseg_tpu_torch/csrc/fused_residual_ce.cu"
+DP_SOURCE = "phiseg_tpu_torch/ops/fused_residual_ce.py"
 TPU_KERNELS = {"fwd": "phiseg_tpu/ops/fused_residual_ce.py:42",
-               "bwd": "phiseg_tpu/ops/fused_residual_ce.py:76"}
+               "bwd": "phiseg_tpu/ops/fused_residual_ce.py:76",
+               "dp": "phiseg_tpu/ops/fused_residual_ce.py:191"}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
+
+
+def bound_ms(nbytes: float, ops: float):
+    """The least time for the work: bytes over HBM rate vs operations over
+    the f32 rate, the larger; and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ce_work(levels: int, pixels: int, nclass: int, with_grad: bool):
+    """Bytes K1 (or K2) must move and operations it does at these shapes:
+    read the logits and the one-hot once (K2 also writes the gradient);
+    per level and pixel about 6C+2 operations (accumulate, max, exp, sum,
+    log, the label's dot; K2 the softmax and the running sum)."""
+    nbytes = (levels * pixels * nclass + pixels * nclass) * 4 + levels * 4
+    if with_grad:
+        nbytes += levels * pixels * nclass * 4
+    return nbytes, levels * pixels * (6 * nclass + 2)
 # (rtol of the forward, atol of the gradient) per logits dtype. f32: the
 # per-level sums run over ~2e5 pixels in another order than the plain
 # version's, while the gradient is elementwise. bf16: the plain version
@@ -240,9 +283,11 @@ def phase_slice():
         bad = [k for k, v in r.items() if k.startswith("batch_") and not math.isfinite(v)]
         if bad:
             fail(f"non-finite losses at step {r['step']}: {bad}")
-    for k, n in launches.items():
-        if n != NUM_STEPS:
-            fail(f"{k} launched {n} times in {NUM_STEPS} steps")
+    for k in ("fused_residual_ce_fwd", "fused_residual_ce_bwd"):
+        if launches[k] != NUM_STEPS:
+            fail(f"{k} launched {launches[k]} times in {NUM_STEPS} steps")
+    if launches["fused_residual_ce_dp"]:
+        fail("K3 launched in a run without a mesh")
 
     init = build_model(cfg, seed=cfg.seed).state_dict()
     trained = trainer.state.model.state_dict()
@@ -263,7 +308,13 @@ def phase_slice():
         f"({1000.0 * cfg.batch_size / med:.2f} img/s, each step synchronised for its log line); "
         f"wall {wall:.2f} s incl. data and first steps; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return launches, cfg
+    return launches, cfg, trainer
+
+
+def _rel_l2(a, b):
+    """Relative L2 distance of a from b over all their tensors."""
+    return math.sqrt(sum(float((a[n] - b[n]).square().sum()) for n in b)
+                     / sum(float(b[n].square().sum()) for n in b))
 
 
 def phase_in_context(cfg):
@@ -302,18 +353,15 @@ def phase_in_context(cfg):
     say(f"in context, plain:  {json.dumps(ld_p, sort_keys=True)}")
     worst = max(abs(ld_k[k] - ld_p[k]) / abs(ld_p[k]) for k in ld_p)
 
-    def rel_l2(a, b, names):
-        diff = sum(float((a[n] - b[n]).square().sum()) for n in names)
-        return math.sqrt(diff / sum(float(b[n].square().sum()) for n in names))
-
     # The likelihood's output convolutions take K2's gradient first, before
     # any backward that sums with atomics: they differ only where the
     # kernels' f32 round-off flips a bf16 rounding. Further back, the bf16
     # atomics of the bilinear upsampling's backward make even two plain
     # steps differ, so there the kernel step is held to that spread.
     head = [n for n in gr_p if n.startswith("likelihood.out")]
-    head_rel, head_noise = rel_l2(gr_k, gr_p, head), rel_l2(gr_p2, gr_p, head)
-    all_rel, all_noise = rel_l2(gr_k, gr_p, list(gr_p)), rel_l2(gr_p2, gr_p, list(gr_p))
+    gr_p_head = {n: gr_p[n] for n in head}
+    head_rel, head_noise = _rel_l2(gr_k, gr_p_head), _rel_l2(gr_p2, gr_p_head)
+    all_rel, all_noise = _rel_l2(gr_k, gr_p), _rel_l2(gr_p2, gr_p)
     say(f"in context (augmentation on): worst loss relative difference {worst:.3e} (tol 1e-4)")
     say(f"in context gradients, relative L2, kernel vs plain (plain vs plain): output convs "
         f"{head_rel:.3e} ({head_noise:.3e}), tol 1e-3; all parameters {all_rel:.3e} "
@@ -324,21 +372,357 @@ def phase_in_context(cfg):
         fail("the step's gradients with the kernels disagree with those with the plain version")
 
 
+def _latent_eps(cfg, batch, generator):
+    """Posterior noise per level, NHWC, on the CPU in the compute dtype."""
+    import torch
+
+    h, w = cfg.image_hw
+    R, L = cfg.resolution_levels, cfg.latent_levels
+    return [torch.randn(batch, h // 2 ** (i + R - L), w // 2 ** (i + R - L), cfg.zdim0,
+                        generator=generator, dtype=cfg.dtype) for i in range(L)]
+
+
+def _step_once(cfg, init, x, s, eps, device, mesh=None):
+    """One train step from the weights `init` on `device`: on the whole
+    global batch without a mesh, on this rank's shard with one. With compute
+    dtype float64 the model is made f64 and the CE is the plain version
+    (the kernels take f32 and bf16). Returns the losses, the gradients
+    before the optimiser and the BN running statistics, copied to the CPU."""
+    import torch
+
+    from phiseg_tpu_torch.engine.train import create_train_state, make_train_step
+    from phiseg_tpu_torch.parallel import shard_array, shard_train_step
+
+    f64 = cfg.compute_dtype == "float64"
+    state = create_train_state(cfg, device)
+    if f64:
+        state.model.double()
+    state.model.load_state_dict(init)
+    step = make_train_step(cfg, use_fused_ce=not f64, mesh=mesh)
+    if mesh is not None:
+        step, state = shard_train_step(step, state, mesh)
+        x, s, eps = shard_array(x, mesh), shard_array(s, mesh), [shard_array(e, mesh) for e in eps]
+    wide = torch.float64 if f64 else x.dtype
+    losses = step(state, x.to(device=device, dtype=wide), s.to(device),
+                  eps=[e.to(device=device, dtype=wide) for e in eps])
+    return ({k: float(v) for k, v in losses.items()},
+            {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+            {n: b.cpu() for n, b in state.model.named_buffers() if "running" in n})
+
+
+def _dp_rank(p):
+    """One rank of phase 5 (runs in a spawned process, gloo on cuda:0)."""
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.config import ExperimentConfig
+    from phiseg_tpu_torch.engine.train import build_model, make_sample_fn
+    from phiseg_tpu_torch.engine.trainer import Trainer
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+    from phiseg_tpu_torch.parallel import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(device=torch.device("cuda", 0))
+    dev = mesh.device
+    out = {"rank": mesh.rank, "backend": torch.distributed.get_backend()}
+
+    # one f32 step and one f64 step from the saved state, injected noise, no
+    # augmentation
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    out["losses"], out["grads"], out["running"] = _step_once(
+        ExperimentConfig.from_json(p["cfg32"]), p["init"], p["x"], p["s"], p["eps"], dev, mesh)
+    out["f32_step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["f64"] = _step_once(ExperimentConfig.from_json(p["cfg64"]), p["init"], p["x"], p["s"],
+                            p["eps"], dev, mesh)
+    out["f64_step_s"] = time.perf_counter() - t0
+
+    # the sharded sampler, f32, the saved weights
+    model = build_model(ExperimentConfig.from_json(p["cfg32"]), dev)
+    model.load_state_dict(p["init"])
+    g = torch.Generator(device=dev).manual_seed(p["sample_seed"])
+    out["sharded"] = make_sample_fn(model, SAMPLES, mesh=mesh)(p["sample_x"].to(dev), g).cpu()
+    torch.backends.cudnn.deterministic = False
+    del model
+    torch.cuda.empty_cache()
+
+    # K3 at the main-path shape: each rank holds its half of the global batch
+    logits, s_oh = _case(5, 12, 128, 2, torch.float32, seed=0)
+    lg = logits[:, mesh.rank * 6:(mesh.rank + 1) * 6].contiguous()
+    so = s_oh[mesh.rank * 6:(mesh.rank + 1) * 6].contiguous()
+    with torch.no_grad():
+        k3 = frce.fused_residual_ce_dp(lg, so, mesh)
+        ref = frce.residual_ce_plain(logits, s_oh)
+        out["k3_err"] = (k3 - ref).abs().max().item()
+        out["k3_rel"] = ((k3 - ref).abs() / ref.abs()).max().item()
+        out["k3_ms"] = cuda_ms(lambda: frce.fused_residual_ce_dp(lg, so, mesh))
+        out["k3_plain_ms"] = cuda_ms(lambda: mesh.mean(frce.residual_ce_plain(lg, so)))
+    out["k3_shape"] = tuple(lg.shape)
+
+    # DP_STEPS bf16 steps with augmentation through the Trainer
+    cfg = ExperimentConfig.from_json(p["cfg"])
+    data = get_dataset(cfg)
+    frce.reset_launch_counts()
+    trainer = Trainer(cfg, log_dir=p["log_dir"], mesh=mesh)
+    trainer.train(data)
+    torch.cuda.synchronize()
+    out["launches"] = dict(frce.LAUNCHES)
+    out["state"] = {k: v.cpu() for k, v in trainer.state.model.state_dict().items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _rel_max(a, b):
+    """Worst over tensors of max|a - b| / max|b|, and the tensor."""
+    worst = max(((float((a[n] - b[n]).abs().max()) / (float(b[n].abs().max()) + 1e-30), n)
+                 for n in b), key=lambda t: t[0])
+    return worst
+
+
+def phase_dp(cfg):
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.train import build_model, create_train_state, make_sample_fn
+    from phiseg_tpu_torch.parallel import spawn_ranks
+
+    cfg32 = cfg.replace(compute_dtype="float32")
+    cfg64 = cfg.replace(compute_dtype="float64")
+    data = get_dataset(cfg)
+    x, s = data.train.next_batch(cfg.batch_size)
+    x, s = torch.from_numpy(x), torch.from_numpy(s.astype("uint8"))
+    eps = _latent_eps(cfg32, cfg.batch_size, torch.Generator().manual_seed(7))
+    init = {k: v.cpu() for k, v in create_train_state(cfg32, torch.device("cuda")).model
+            .state_dict().items()}
+    sample_x = x[:2].clone()
+
+    cuda = torch.device("cuda")
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = _step_once(cfg32, init, x, s, eps, cuda)
+        again = _step_once(cfg32, init, x, s, eps, cuda)
+        # the images one f32 ulp up: how far round-off alone moves the step
+        nudged = _step_once(cfg32, init, torch.nextafter(x, torch.full_like(x, math.inf)),
+                            s, eps, cuda)
+        # the same step in f64: what the f32 steps approximate
+        one64 = _step_once(cfg64, init, x, s, eps, cuda)
+        torch.cuda.empty_cache()
+        model = build_model(cfg32, torch.device("cuda"))
+        model.load_state_dict(init)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        unsharded = make_sample_fn(model, SAMPLES)(sample_x.cuda(), g).cpu()
+        del model
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log_dir = os.path.join(OUT_DIR, "dp", "log")
+    dcfg = cfg.replace(num_iter=DP_STEPS, tensorboard_update_frequency=1)
+    say(f"dp: {DP_WORLD} gloo ranks on cuda:0, {EXPERIMENT} at full width, global batch "
+        f"{cfg.batch_size} ({cfg.batch_size // DP_WORLD} per rank)")
+    t0 = time.perf_counter()
+    payload = dict(cfg32=cfg32.to_json(), cfg64=cfg64.to_json(), cfg=dcfg.to_json(), init=init,
+                   x=x, s=s, eps=eps, sample_x=sample_x, sample_seed=11, log_dir=log_dir)
+    try:
+        outs = spawn_ranks(_dp_rank, DP_WORLD, (payload,), backend="gloo", timeout=RANK_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"data-parallel ranks: {e}")
+    say(f"dp: ranks done in {time.perf_counter() - t0:.2f} s (spawn, imports and all phases); "
+        f"backend {outs[0]['backend']}; f32 step {outs[0]['f32_step_s']:.3f} s, f64 step "
+        f"{outs[0]['f64_step_s']:.3f} s on rank 0; peak {max(o['peak_gib'] for o in outs):.3f} "
+        f"GiB per rank")
+
+    # The 2-rank step vs the 1-rank step in f64, tensor by tensor: the two
+    # are one function summed in another order, so they agree to f64
+    # round-off, amplified as far as the images-one-ulp-up run shows f32's
+    # is (~3e5), unless the data-parallel path is wrong.
+    ld64, gr64, rs64 = one64
+    for o in outs:
+        if set(o["f64"][0]) != set(ld64):
+            fail(f"rank {o['rank']} f64 loss keys {sorted(o['f64'][0])}")
+    loss64 = max(abs(o["f64"][0][k] - ld64[k]) / abs(ld64[k]) for o in outs for k in ld64)
+    grad64, grad64_at = max(_rel_max(o["f64"][1], gr64) for o in outs)
+    run64, run64_at = max(_rel_max(o["f64"][2], rs64) for o in outs)
+    dtypes = {str(t.dtype) for o in outs for t in o["f64"][1].values()}
+    say(f"dp f64 step, 2 ranks vs 1 rank (per tensor, max|diff| / max|1 rank|; tol 1e-6): "
+        f"worst loss rel {loss64:.3e}; gradients worst {grad64:.3e} at {grad64_at}; BN running "
+        f"stats worst {run64:.3e} at {run64_at}; gradient dtypes {sorted(dtypes)}")
+    if not (loss64 <= 1e-6 and grad64 <= 1e-6 and run64 <= 1e-6) or dtypes != {"torch.float64"}:
+        fail("the 2-rank f64 step disagrees with the 1-rank f64 step")
+    # How far each f32 step is from the f64 one: 1 rank (F.batch_norm) and
+    # 2 ranks (sync-BN, E[x^2] - E[x]^2).
+    for k, g in (("1 rank", one[1]), ("2 ranks", outs[0]["grads"])):
+        worst, at = _rel_max(g, gr64)
+        say(f"dp f32 gradients, {k}, vs the f64 1-rank step: rel L2 {_rel_l2(g, gr64):.3e}, "
+            f"worst tensor {worst:.3e} at {at}")
+
+    # The 2-rank step vs the 1-rank step on the same global batch in f32.
+    # The gradients are held by their relative L2 over all parameters: at
+    # init (KL ~1e5, gradients ~1e6) f32 round-off alone moves single tensors
+    # by more than 1e-3 of their largest entry, which the run with the images
+    # one ulp up shows and the f64 comparison above bounds; per-tensor
+    # figures are printed beside it.
+    (ld1, gr1, rs1), (ld1b, gr1b, rs1b), (_, gr1u, _) = one, again, nudged
+    spread_loss = max(abs(ld1b[k] - ld1[k]) / abs(ld1[k]) for k in ld1)
+    spread_l2, ulp_l2 = _rel_l2(gr1b, gr1), _rel_l2(gr1u, gr1)
+    ulp_worst, ulp_at = _rel_max(gr1u, gr1)
+    spread_run, _ = _rel_max(rs1b, rs1)
+    tol_loss, tol_grad, tol_run = max(1e-4, spread_loss), max(1e-3, spread_l2), max(1e-4, spread_run)
+    for o in outs:
+        if set(o["losses"]) != set(ld1):
+            fail(f"rank {o['rank']} loss keys {sorted(o['losses'])}")
+    worst_loss = max(abs(o["losses"][k] - ld1[k]) / abs(ld1[k]) for o in outs for k in ld1)
+    l2 = max(_rel_l2(o["grads"], gr1) for o in outs)
+    worst_grad, grad_at = max(_rel_max(o["grads"], gr1) for o in outs)
+    worst_run, run_at = max(_rel_max(o["running"], rs1) for o in outs)
+    say(f"dp f32 step, 2 ranks vs 1 rank: worst loss rel {worst_loss:.3e} (tol {tol_loss:.1e}: "
+        f"{'1e-4' if tol_loss == 1e-4 else '1-rank spread'}; 1-rank vs 1-rank {spread_loss:.3e}); "
+        f"gradients before the optimiser, all-parameter rel L2 {l2:.3e} (tol {tol_grad:.1e}: "
+        f"{'1e-3' if tol_grad == 1e-3 else '1-rank spread'}; 1-rank vs 1-rank {spread_l2:.3e}, "
+        f"images one ulp up {ulp_l2:.3e}); worst per-tensor max-rel {worst_grad:.3e} at {grad_at} "
+        f"(images one ulp up: {ulp_worst:.3e} at {ulp_at}); BN running stats worst "
+        f"{worst_run:.3e} at {run_at} (tol {tol_run:.1e}; spread {spread_run:.3e})")
+    say(f"dp f32 losses, 2 ranks: {json.dumps(outs[0]['losses'], sort_keys=True)}")
+    if not (worst_loss <= tol_loss and l2 <= tol_grad and worst_run <= tol_run):
+        fail("the 2-rank step disagrees with the 1-rank step")
+    if not all(torch.equal(outs[0]["grads"][n], outs[1]["grads"][n]) for n in gr1):
+        fail("the ranks' averaged gradients differ")
+
+    # the sharded sampler vs the unsharded one
+    diffs = [float((o["sharded"] - unsharded).abs().max()) for o in outs]
+    say(f"dp sampler: {SAMPLES} samples of B=2 in f32, 2-rank sharded vs unsharded, same seed: "
+        f"max abs prob diff {max(diffs):.3e} (tol 1e-4: a rank decodes {SAMPLES} rows, the "
+        f"unsharded sampler {2 * SAMPLES}, and cuDNN may pick another algorithm); ranks "
+        f"bitwise equal {torch.equal(outs[0]['sharded'], outs[1]['sharded'])}")
+    if max(diffs) > 1e-4 or not torch.equal(outs[0]["sharded"], outs[1]["sharded"]):
+        fail("the sharded sampler differs from the unsharded one")
+
+    # K3
+    k3_err, k3_rel = max(o["k3_err"] for o in outs), max(o["k3_rel"] for o in outs)
+    say(f"K3 at L5 B12 (6 per rank) 128x128 C2 f32: vs the plain global value max abs err "
+        f"{k3_err:.3e}, rel {k3_rel:.3e} (tol rel {TOLERANCE['float32'][0]:g}, K1's); "
+        f"per call incl. host issue and "
+        f"the gloo all_reduce {outs[0]['k3_ms']:.4f} ms vs plain + all_reduce "
+        f"{outs[0]['k3_plain_ms']:.4f} ms (CUDA events, median of 50, rank 0)")
+    if not k3_rel <= TOLERANCE["float32"][0]:
+        fail("K3 disagrees with the plain version")
+
+    # DP_STEPS through the Trainer
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if [r["step"] for r in recs] != list(range(DP_STEPS)):
+        fail(f"dp metrics.jsonl holds steps {[r['step'] for r in recs]}")
+    for r in recs:
+        if not all(math.isfinite(v) for k, v in r.items() if k.startswith("batch_")):
+            fail(f"dp: non-finite losses at step {r['step']}")
+    for o in outs:
+        for k, n in o["launches"].items():
+            if n != DP_STEPS:
+                fail(f"dp rank {o['rank']}: {k} launched {n} times in {DP_STEPS} steps")
+    a, b = outs[0]["state"], outs[1]["state"]
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    say(f"dp trainer: {DP_STEPS} bf16 steps with augmentation, losses finite (total "
+        f"{recs[0]['batch_total_loss']:.6g} -> {recs[-1]['batch_total_loss']:.6g}); launches per "
+        f"rank {[o['launches'] for o in outs]}; rank state_dicts bitwise equal: "
+        f"{not unequal} ({len(unequal)} of {len(a)} entries differ)")
+    if unequal:
+        fail(f"the ranks' states differ after {DP_STEPS} steps: {unequal[:5]}")
+    step_ms = [1000.0 * cfg.batch_size / r["images_per_sec"] for r in recs[2:]]
+    say(f"dp step time (a correctness run: two processes share one card, gloo through the "
+        f"host): median {statistics.median(step_ms):.3f} ms over steps 2..{DP_STEPS - 1}")
+    return outs, k3_err
+
+
+def phase_mesh1():
+    from phiseg_tpu_torch.cli.train import main as train_main
+
+    cfg_path = os.path.join(OUT_DIR, "config.json")
+    log_dir = os.path.join(OUT_DIR, "mesh1", "log")
+    t0 = time.perf_counter()
+    try:  # each rank zeroes its launch counts before it trains
+        ranks = train_main([cfg_path, "--mesh", "1", "--num-iter", "3", "--log-dir", log_dir],
+                           timeout=RANK_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"--mesh 1: {e}")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    ok = [r["step"] for r in recs] == [0, 1, 2] and all(
+        math.isfinite(v) for r in recs for k, v in r.items() if k.startswith("batch_"))
+    steps, launches = [st for st, _ in ranks], [n for _, n in ranks]
+    say(f"--mesh 1 (NCCL, one rank on cuda:0) through the CLI: steps {steps}, "
+        f"{len(recs)} finite loss records, launches {launches}, "
+        f"{time.perf_counter() - t0:.2f} s incl. spawn")
+    if steps != [3] or not ok:
+        fail("--mesh 1 did not train 3 steps with finite losses")
+    for k in ("fused_residual_ce_fwd", "fused_residual_ce_bwd", "fused_residual_ce_dp"):
+        if launches[0].get(k) != 3:
+            fail(f"--mesh 1: {k} launched {launches[0].get(k)} times in 3 steps")
+
+
+def phase_sampler(trainer):
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.train import make_sample_fn
+
+    cfg = trainer.cfg
+    model = trainer.state.model
+    data = get_dataset(cfg)
+    sample = make_sample_fn(model, SAMPLES)
+    res = {}
+    for b in (1, 8):
+        x = torch.from_numpy(data.train.next_batch(b)[0]).cuda()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        probs = sample(x, g)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if probs.shape != (SAMPLES, b, *cfg.image_hw, cfg.nlabels) or not torch.isfinite(probs).all():
+            fail(f"sampler output {tuple(probs.shape)} or non-finite at B={b}")
+        if not torch.allclose(probs.sum(-1), torch.ones((), device="cuda"), atol=1e-5):
+            fail("sampler probabilities do not sum to 1")
+        # one call per timing: ~700 launches, which the launch queue holds
+        dev = device_ms(lambda: sample(x, g), iters=1, warmup=2)
+        call = cuda_ms(lambda: sample(x, g), iters=5, warmup=1)
+        res[b] = (dev, call, peak)
+        say(f"sampler {SAMPLES} samples B={b} {cfg.compute_dtype} (R={cfg.resolution_levels} "
+            f"L={cfg.latent_levels} n0={cfg.n0} {cfg.image_hw}, trained in phase 3): device "
+            f"{dev:.3f} ms/call = {dev / b:.3f} ms/image (CUDA events, host kept ahead, 1 call); "
+            f"per call incl. host issue {call:.3f} ms = {call / b:.3f} ms/image (median of 5); "
+            f"peak device memory {peak:.3f} GiB")
+    return res
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     errs, times, plain = phase_kernels()
-    launches, cfg = phase_slice()
+    launches, cfg, trainer = phase_slice()
     phase_in_context(cfg)
+    dp_outs, k3_err = phase_dp(cfg)
+    phase_mesh1()
+    phase_sampler(trainer)
 
     import torch
 
-    kernels = [
-        {"name": f"fused_residual_ce_{k}", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": TPU_KERNELS[k], "launches": launches[f"fused_residual_ce_{k}"],
-         "max_abs_err": errs[k], "ms": times[k], "plain_ms": plain[k]}
-        for k in ("fwd", "bwd")
-    ]
+    pixels = cfg.batch_size * cfg.image_hw[0] * cfg.image_hw[1]
+    kernels = []
+    for k in ("fwd", "bwd"):
+        b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels, cfg.nlabels, k == "bwd"))
+        kernels.append(
+            {"name": f"fused_residual_ce_{k}", "route": "cuda", "source": KERNEL_SOURCE,
+             "replaces": TPU_KERNELS[k], "launches": launches[f"fused_residual_ce_{k}"],
+             "max_abs_err": errs[k], "ms": times[k], "plain_ms": plain[k],
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # K3 on one rank: K1 over its shard (the all_reduce moves L floats)
+    b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels // DP_WORLD, cfg.nlabels, False))
+    kernels.append(
+        {"name": "fused_residual_ce_dp", "route": "cuda K1/K2 per rank + all_reduce",
+         "source": DP_SOURCE, "replaces": TPU_KERNELS["dp"],
+         "launches": dp_outs[0]["launches"]["fused_residual_ce_dp"], "max_abs_err": k3_err,
+         "ms": dp_outs[0]["k3_ms"], "plain_ms": dp_outs[0]["k3_plain_ms"],
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

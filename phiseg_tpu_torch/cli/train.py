@@ -3,10 +3,16 @@
 Usage:
   python -m phiseg_tpu_torch.cli.train phiseg_7_5_synth --num-iter 2000
   python -m phiseg_tpu_torch.cli.train path/to/config.json   # a config snapshot
+  python -m phiseg_tpu_torch.cli.train phiseg_7_5_synth --mesh 4   # 4 local cards
+  torchrun --nproc-per-node 4 -m phiseg_tpu_torch.cli.train phiseg_7_5_synth --distributed
 
-The arguments are the JAX CLI's. `--mesh` and `--distributed` raise until
-data parallelism is ported; `--no-resume` changes nothing yet, since the
-port has no checkpoints to resume from (ROADMAP Queue 1 item 10).
+The arguments are the JAX CLI's, plus `--device` (default cuda: without a
+card it raises; pass `--device cpu` to train on the CPU). `--mesh N` starts
+N local ranks, one per card, and trains data-parallel over them (the global
+batch is the config's); `--distributed` joins the process group that
+torchrun's environment describes. The backend is NCCL on cuda and gloo on
+the CPU. `--no-resume` changes nothing yet, since the port has no
+checkpoints to resume from (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -17,19 +23,23 @@ import os
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("experiment", help="experiment name or config.json path")
     p.add_argument("--data", default=None, choices=[None, "lidc", "synthetic"],
                    help="override the config's dataset")
     p.add_argument("--num-iter", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--log-dir", default=None)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to train; cuda without a card raises")
     p.add_argument("--mesh", type=int, default=None,
-                   help="number of devices for data-parallel training (not ported yet)")
+                   help="number of local ranks (one per card) for data-parallel training")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--dtype", default=None, choices=[None, "float32", "bfloat16"])
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host training (not ported yet)")
+                   help="join the process group of torchrun's environment "
+                        "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
     p.add_argument("--no-image-summaries", action="store_true",
                    help="disable TB image grids / per-level output maps")
     p.add_argument("--no-histogram-summaries", action="store_true",
@@ -47,13 +57,36 @@ def resolve_config(name_or_path: str):
     return get_experiment(name_or_path)
 
 
-def main(argv=None):
-    """Train the named experiment; returns the Trainer after the last step."""
+def _train(cfg, log_dir, device, mesh=None):
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.trainer import Trainer
+
+    data = get_dataset(cfg)
+    trainer = Trainer(cfg, log_dir=log_dir, device=device, mesh=mesh)
+    trainer.train(data)
+    return trainer
+
+
+def _train_rank(cfg_json: str, log_dir, device: str, num_devices: int):
+    """One rank of `--mesh N` (runs in a process of its own): the step it
+    reached and its kernels' launch counts over the run."""
+    from phiseg_tpu_torch.engine.config import ExperimentConfig
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+    from phiseg_tpu_torch.parallel import make_mesh
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    mesh = make_mesh(num_devices, device=device)
+    frce.reset_launch_counts()
+    step = _train(ExperimentConfig.from_json(cfg_json), log_dir, device, mesh).state.step
+    return step, dict(frce.LAUNCHES)
+
+
+def main(argv=None, timeout=None):
+    """Train the named experiment. Returns the Trainer after the last step;
+    with `--mesh`, each rank's (step reached, kernel launch counts), in rank
+    order (`timeout` bounds the ranks' run, in seconds)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = parse_args(argv)
-    if args.mesh or args.distributed:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet (ROADMAP Queue 1 item 13, with K3)")
     cfg = resolve_config(args.experiment)
     if args.data:
         cfg = cfg.replace(data_identifier=args.data)
@@ -68,13 +101,27 @@ def main(argv=None):
     if args.no_histogram_summaries:
         cfg = cfg.replace(do_histogram_summaries=False)
 
-    from phiseg_tpu_torch.data import get_dataset
-    from phiseg_tpu_torch.engine.trainer import Trainer
+    import torch
 
-    data = get_dataset(cfg)
-    trainer = Trainer(cfg, log_dir=args.log_dir)
-    trainer.train(data)
-    return trainer
+    from phiseg_tpu_torch import parallel
+
+    parallel.resolve_device(args.device)  # cuda without a card raises here
+    if args.distributed:
+        parallel.init_distributed_from_env(device=args.device)
+        try:
+            return _train(cfg, args.log_dir, args.device,
+                          parallel.make_mesh(args.mesh, device=args.device))
+        finally:
+            torch.distributed.destroy_process_group()
+    if args.mesh:
+        if args.device == "cuda" and args.mesh > torch.cuda.device_count():
+            raise ValueError(f"requested {args.mesh} devices, only "
+                             f"{torch.cuda.device_count()} available")
+        backend = "nccl" if args.device == "cuda" else "gloo"
+        return parallel.spawn_ranks(_train_rank, args.mesh,
+                                    (cfg.to_json(), args.log_dir, args.device, args.mesh),
+                                    backend=backend, timeout=timeout)
+    return _train(cfg, args.log_dir, args.device)
 
 
 if __name__ == "__main__":

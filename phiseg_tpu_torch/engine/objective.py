@@ -7,7 +7,10 @@
     level, optionally 4^i weighted (:265-287);
   * optional L2 weight decay over the conv kernels (:290-300).
 
-Loss-dict keys match the reference names.
+Loss-dict keys match the reference names. Under a mesh every entry is the
+global-batch mean on every rank: the CE through K3 (`fused_residual_ce_dp`),
+the KL levels through one all_reduce (ref phiseg_tpu/engine/objective.py:31-50,
+where the means over a global array are global by construction).
 """
 
 from __future__ import annotations
@@ -19,17 +22,30 @@ from torch import nn
 
 from phiseg_tpu_torch.engine.config import ExperimentConfig
 from phiseg_tpu_torch.models.segvae import ModelOutputs
+from phiseg_tpu_torch.nn.layers import at_least_f32
 from phiseg_tpu_torch.nn.losses import kl_two_gauss_diag_cov
-from phiseg_tpu_torch.ops.fused_residual_ce import fused_residual_ce, residual_ce_plain
+from phiseg_tpu_torch.ops.fused_residual_ce import (
+    fused_residual_ce,
+    fused_residual_ce_dp,
+    residual_ce_plain,
+)
 
 
 def residual_multinoulli_loss(s_out_list: Sequence[torch.Tensor], s_oh: torch.Tensor,
-                              use_fused: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Sum over levels of CE(accumulated logits, GT) (ref :241-262)."""
+                              use_fused: bool = False, mesh=None
+                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sum over levels of CE(accumulated logits, GT) (ref :241-262); the
+    global-batch value under a mesh."""
     if use_fused:
-        per_level = fused_residual_ce(torch.stack(list(s_out_list), dim=0), s_oh)
+        stacked = torch.stack(list(s_out_list), dim=0)
+        if mesh is not None:
+            per_level = fused_residual_ce_dp(stacked, s_oh, mesh)
+        else:
+            per_level = fused_residual_ce(stacked, s_oh)
     else:
         per_level = residual_ce_plain(s_out_list, s_oh)
+        if mesh is not None:
+            per_level = mesh.mean(per_level)
     loss_dict = {f"residual_multinoulli_loss_lvl{i}": per_level[i]
                  for i in range(len(s_out_list))}
     return per_level.sum(), loss_dict
@@ -62,26 +78,32 @@ def hierarchical_kl_loss(outputs: ModelOutputs, exponential_weighting: bool,
 def weight_decay_loss(model: nn.Module) -> torch.Tensor:
     """L2 over the conv kernels, tf.nn.l2_loss = sum(x^2)/2 (ref :290-300).
     The kernels are the Flax `kernel` leaves, here `*.conv.weight`."""
-    terms = [0.5 * torch.sum(torch.square(p.float()))
+    terms = [0.5 * torch.sum(torch.square(at_least_f32(p)))
              for name, p in model.named_parameters() if name.endswith("conv.weight")]
     return torch.stack(terms).sum()
 
 
 def phiseg_objective(outputs: ModelOutputs, s_oh: torch.Tensor, cfg: ExperimentConfig,
-                     model: Optional[nn.Module] = None, use_fused_ce: bool = False
-                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss + per-term dict (keys match ref loss_dict, :114-130)."""
+                     model: Optional[nn.Module] = None, use_fused_ce: bool = False,
+                     mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Total loss + per-term dict (keys match ref loss_dict, :114-130).
+    With a mesh (parallel.mesh.Mesh), every term is the global-batch mean."""
     loss_dict: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), dtype=torch.float32, device=s_oh.device)
 
     if cfg.residual_multinoulli_loss_weight is not None:
-        ce, ce_dict = residual_multinoulli_loss(outputs.s_out_list, s_oh, use_fused_ce)
+        ce, ce_dict = residual_multinoulli_loss(outputs.s_out_list, s_oh, use_fused_ce, mesh)
         loss_dict.update(ce_dict)
         total = total + cfg.residual_multinoulli_loss_weight * ce
 
     if cfg.kl_divergence_loss_weight is not None and len(outputs.q_mu) > 0:
         kl, kl_dict = hierarchical_kl_loss(outputs, cfg.exponential_weighting,
                                            sigma_floor=cfg.kl_sigma_floor)
+        if mesh is not None:
+            keys = list(kl_dict)
+            means = mesh.mean(torch.stack([kl_dict[k] for k in keys]))
+            kl_dict = {k: means[i] for i, k in enumerate(keys)}
+            kl = means.sum()
         loss_dict.update(kl_dict)
         total = total + cfg.kl_divergence_loss_weight * kl
 

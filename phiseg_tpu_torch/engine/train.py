@@ -1,24 +1,31 @@
-"""Model, optimiser and train-step factories (port of phiseg_tpu/engine/train.py:27-194).
+"""Model, optimiser, train-step and sampler factories (port of
+phiseg_tpu/engine/train.py:27-257).
 
 One train step runs: augmentation -> one-hot -> SegVAE forward -> objective
 -> backward -> optimiser update. The batch-norm running statistics update
 inside the forward, as the Flax `mutable=["batch_stats"]` apply does. The
 learning-rate dict schedule (ref utils.py:70-84 `find_floor_in_list`) is
-looked up on the host from the step counter.
+looked up on the host from the step counter. Under a mesh the step runs on
+this rank's batch shard with sync-BN and global losses, and averages the
+gradients over the ranks between backward and the optimiser.
+
+The samplers encode x once and decode all S draws as one S x B batch in
+eval batch-norm mode, where the JAX package vmaps a decode over S keys.
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 from phiseg_tpu_torch.engine.config import ExperimentConfig
 from phiseg_tpu_torch.engine.objective import phiseg_objective
-from phiseg_tpu_torch.models.segvae import SegVAE
-from phiseg_tpu_torch.nn.layers import init_he_normal_
+from phiseg_tpu_torch.models.segvae import SegVAE, aggregate_levels
+from phiseg_tpu_torch.nn.layers import init_he_normal_, set_batch_norm_mesh
 from phiseg_tpu_torch.nn.losses import one_hot
 
 
@@ -91,7 +98,7 @@ AugmentFn = Callable[..., tuple]
 
 
 def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = None,
-                    use_fused_ce: Optional[bool] = None):
+                    use_fused_ce: Optional[bool] = None, mesh=None):
     """Build step(state, x, s, generator=None, eps=None) -> loss dict.
 
     x: (B,H,W,Cin) float; s: (B,H,W) integer labels, both on the model's
@@ -99,22 +106,35 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     `eps` injects the noise instead (per level, NHWC like z). The returned
     losses are detached device tensors. use_fused_ce=None uses the fused
     residual-CE kernels when x is on a CUDA device.
+
+    With a mesh (parallel.mesh.Mesh), x and s are this rank's shard of the
+    global batch, batch norm is sync-BN, the losses are global means, and
+    the gradients are averaged over the ranks before the optimiser; pass the
+    step and state through parallel.shard_train_step first.
     """
     lr_fn = lr_schedule_from_dict(cfg.lr_schedule)
+    sync_bn_model = None  # the model whose batch norms this step made sync-BN
 
     def step(state: TrainState, x: torch.Tensor, s: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              eps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        nonlocal sync_bn_model
         fused = x.is_cuda if use_fused_ce is None else use_fused_ce
         if augment_fn is not None:
             x, s = augment_fn(x, s, generator)
         s_oh = one_hot(s, cfg.nlabels)
         model, opt = state.model, state.optimizer
         model.train()
+        if mesh is not None and model is not sync_bn_model:
+            set_batch_norm_mesh(model, mesh)
+            sync_bn_model = model
         outputs = model(x, s_oh, eps=eps, generator=generator)
-        loss, loss_dict = phiseg_objective(outputs, s_oh, cfg, model=model, use_fused_ce=fused)
+        loss, loss_dict = phiseg_objective(outputs, s_oh, cfg, model=model, use_fused_ce=fused,
+                                           mesh=mesh)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(list(model.parameters()))
         lr = lr_fn(state.step)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -122,4 +142,91 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
         state.step += 1
         return {k: v.detach() for k, v in loss_dict.items()}
 
+    step.mesh = mesh
     return step
+
+
+@contextlib.contextmanager
+def _eval_mode(model: torch.nn.Module):
+    was_training = model.training
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train(was_training)
+
+
+def _draw_range(num_samples: int, mesh) -> Tuple[int, int]:
+    """The draws [lo, hi) this rank decodes: all of them without a mesh."""
+    if mesh is None:
+        return 0, num_samples
+    if num_samples % mesh.world_size:
+        raise ValueError(f"{num_samples} samples do not split over {mesh.world_size} ranks")
+    per = num_samples // mesh.world_size
+    return mesh.rank * per, (mesh.rank + 1) * per
+
+
+def _decode_draws(model: SegVAE, x: torch.Tensor, num_samples: int, lo: int, hi: int,
+                  generator: Optional[torch.Generator],
+                  eps: Optional[Sequence[torch.Tensor]]) -> List[torch.Tensor]:
+    """Per-level logits (hi-lo, B, H, W, C) of draws lo..hi-1 of num_samples.
+
+    Each level's noise for ALL draws comes from `generator` in one call
+    (S, B, h, w, zdim), so a rank that decodes a share of the draws gets the
+    same noise as a single device: sharding does not change the draws.
+    `eps` injects that noise instead.
+    """
+    b = x.shape[0]
+    if eps is None:
+        eps = [torch.randn((num_samples, *shape), generator=generator, device=x.device,
+                           dtype=model.dtype)
+               for shape in model.latent_shapes(b)]
+    n = hi - lo
+    eps = [e[lo:hi].reshape(n * b, *e.shape[2:]) for e in eps]
+    cache = model.repeat_cache(model.sample_cache(x), n)
+    return [t.reshape(n, b, *t.shape[1:]) for t in model.decode_sample(cache, eps=eps)]
+
+
+def _assemble(part: torch.Tensor, num_samples: int, lo: int, mesh) -> torch.Tensor:
+    """Every rank's share of the draws in one (S, ...) tensor on every rank:
+    an all_reduce of a zero-filled buffer, in which each rank wrote its
+    share (exact, since the other ranks add zeros)."""
+    if mesh is None:
+        return part
+    full = torch.zeros((num_samples, *part.shape[1:]), dtype=part.dtype, device=part.device)
+    full[lo:lo + part.shape[0]] = part
+    return mesh.all_reduce_(full)
+
+
+def make_sample_fn(model: SegVAE, num_samples: int, return_probs: bool = True, mesh=None):
+    """N-sample prior inference (ref engine/train.py:210-240): build
+    sample(x, generator=None, eps=None) -> (S, B, H, W, C) f32 softmax
+    probabilities (or logits).
+
+    x (B,H,W,Cin) is encoded once and the S draws are decoded as one S x B
+    batch, in eval batch-norm mode, without autograd. With a mesh, each rank
+    decodes S/N of the draws from the same cache and every rank returns all
+    S.
+    """
+    lo, hi = _draw_range(num_samples, mesh)
+
+    def sample(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               eps: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        with torch.no_grad(), _eval_mode(model):
+            logits = aggregate_levels(_decode_draws(model, x, num_samples, lo, hi, generator, eps))
+            out = torch.softmax(logits, dim=-1) if return_probs else logits
+            return _assemble(out, num_samples, lo, mesh)
+
+    return sample
+
+
+def make_sample_levels_fn(model: SegVAE, num_samples: int):
+    """Like make_sample_fn but returns the per-level logits, each
+    (S, B, H, W, C) (ref predict_segmentation_sample_levels :367-375)."""
+
+    def sample(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+               eps: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, ...]:
+        with torch.no_grad(), _eval_mode(model):
+            return tuple(_decode_draws(model, x, num_samples, 0, num_samples, generator, eps))
+
+    return sample

@@ -7,6 +7,14 @@ forward, objective, backward, Adam, BN statistics) and, every
 on a non-finite loss, and writes the scalars to TensorBoard and
 `metrics.jsonl` with the images/s since the last report.
 
+The trainer runs on the card unless it is asked for the CPU: device "cuda"
+without a card raises. With a mesh (parallel.mesh.Mesh) it is one rank of a
+data-parallel run (ref trainer.py:120, 166-171, 193-199): every rank pulls
+the same global batch and puts its slice on its device, the augmentation and
+posterior noise are drawn from a generator seeded per rank, the losses are
+global means, and only rank 0 writes config.json, TensorBoard and
+`metrics.jsonl`. images/s counts the global batch.
+
 Validation, checkpoints and resume are not ported yet (ROADMAP Queue 1,
 item 10): the loop raises when it reaches a validation step, and the final
 state is not saved.
@@ -32,6 +40,7 @@ from phiseg_tpu_torch.engine.train import (
     lr_schedule_from_dict,
     make_train_step,
 )
+from phiseg_tpu_torch.parallel.mesh import resolve_device, shard_host_batch, shard_train_step
 from phiseg_tpu_torch.utils.tb_writer import SummaryWriter
 
 log = logging.getLogger(__name__)
@@ -92,28 +101,47 @@ def write_metrics_jsonl(path: str, step: int, metrics: dict) -> None:
         f.write(json.dumps(rec) + "\n")
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s augmentation and noise generator: `seed`
+    itself on rank 0 (a run without a mesh is rank 0), a distinct seed on
+    every other rank, so no two ranks draw the same noise. The rank moves
+    the low 32 bits, the only ones a CPU generator keeps."""
+    return (seed + 0x9E3779B9 * rank) % 2 ** 32
+
+
 class Trainer:
-    def __init__(self, cfg: ExperimentConfig, log_dir: Optional[str] = None):
+    def __init__(self, cfg: ExperimentConfig, log_dir: Optional[str] = None,
+                 device: str = "cuda", mesh=None):
         self.cfg = cfg
-        self.device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.is_chief = mesh is None or mesh.rank == 0
         self.log_dir = log_dir or os.path.join(log_root(), cfg.log_dir_name, cfg.experiment_name)
-        os.makedirs(self.log_dir, exist_ok=True)
-        # Config snapshot for provenance (ref phiseg_train.py:44-47).
-        cfg.save(os.path.join(self.log_dir, "config.json"))
+        if self.is_chief:
+            os.makedirs(self.log_dir, exist_ok=True)
+            # Config snapshot for provenance (ref phiseg_train.py:44-47).
+            cfg.save(os.path.join(self.log_dir, "config.json"))
 
         self.state = create_train_state(cfg, self.device)
         augment_fn = None
         if cfg.augment_on_device and cfg.augmentation_options:
             augment_fn = make_augment_fn(cfg.augmentation_options, cfg.nlabels)
         self.train_step = make_train_step(cfg, augment_fn=augment_fn,
-                                          use_fused_ce=cfg.use_fused_loss_kernel)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
-        self.writer = SummaryWriter(self.log_dir)
+                                          use_fused_ce=cfg.use_fused_loss_kernel, mesh=mesh)
+        if mesh is not None:
+            self.train_step, self.state = shard_train_step(self.train_step, self.state, mesh)
+        rank = 0 if mesh is None else mesh.rank
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(cfg.seed + 1, rank))
+        self.writer = SummaryWriter(self.log_dir) if self.is_chief else None
         self.metrics_path = os.path.join(self.log_dir, "metrics.jsonl")
         self._lr = lr_schedule_from_dict(cfg.lr_schedule)
 
     def _to_device(self, x, s):
-        """Host batch -> device tensors: images f32, labels uint8."""
+        """Host batch -> device tensors (this rank's slice under a mesh):
+        images f32, labels uint8."""
+        if self.mesh is not None:
+            x, s = shard_host_batch(x, self.mesh), shard_host_batch(s, self.mesh)
         s = np.asarray(s)
         if self.cfg.nlabels <= 255 and s.dtype != np.uint8:
             s = s.astype(np.uint8)
@@ -143,11 +171,12 @@ class Trainer:
                     dt, t_last = now - t_last, now
                     ips = cfg.batch_size * cfg.tensorboard_update_frequency / dt if step else 0.0
                     scalars = {f"batch_{k}": v for k, v in loss_dict.items()}
-                    scalars["images_per_sec"] = ips
+                    scalars["images_per_sec"] = ips  # cfg.batch_size is the global batch
                     scalars["learning_rate"] = self._lr(step)
-                    self.writer.scalars(scalars, step)
-                    self.writer.flush()
-                    write_metrics_jsonl(self.metrics_path, step, scalars)
+                    if self.is_chief:
+                        self.writer.scalars(scalars, step)
+                        self.writer.flush()
+                        write_metrics_jsonl(self.metrics_path, step, scalars)
                     log.info("step %d: loss %.4f (%.1f img/s)", step,
                              loss_dict["total_loss"], ips)
 
@@ -160,5 +189,6 @@ class Trainer:
             log.warning("checkpoints are not ported yet: the final state is not saved")
         finally:
             prefetch.stop()
-            self.writer.close()
+            if self.writer is not None:
+                self.writer.close()
         return self.state

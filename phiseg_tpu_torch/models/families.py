@@ -17,7 +17,12 @@ from phiseg_tpu_torch.models.components import (
     LatentHierarchy,
     default_channels,
 )
-from phiseg_tpu_torch.nn.layers import ConvBlock, resize_nearest, upsample_bilinear
+from phiseg_tpu_torch.nn.layers import (
+    ConvBlock,
+    at_least_f32,
+    resize_nearest,
+    upsample_bilinear,
+)
 
 
 class PhiSegPosterior(nn.Module):
@@ -52,11 +57,21 @@ class PhiSegPrior(nn.Module):
         self.tower = EncoderTower(image_channels, n0, resolution_levels, norm, dtype)
         self.hierarchy = LatentHierarchy(zdim0, n0, latent_levels, resolution_levels, norm, dtype)
 
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The x-only part: the encoder features, finest first (ref families.py:107-108)."""
+        return self.tower(x.to(self.dtype))
+
+    def heads(self, pre_z: Sequence[torch.Tensor],
+              z_teacher: Optional[Sequence[torch.Tensor]] = None,
+              eps: Optional[Sequence[torch.Tensor]] = None,
+              generator: Optional[torch.Generator] = None):
+        """(z, mu, sigma) from the encoder features (ref families.py:110-118)."""
+        return self.hierarchy(pre_z, eps=eps, generator=generator, z_chain_source=z_teacher)
+
     def forward(self, x: torch.Tensor, z_teacher: Optional[Sequence[torch.Tensor]] = None,
                 eps: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None):
-        pre_z = self.tower(x.to(self.dtype))
-        return self.hierarchy(pre_z, eps=eps, generator=generator, z_chain_source=z_teacher)
+        return self.heads(self.encode(x), z_teacher=z_teacher, eps=eps, generator=generator)
 
 
 class PhiSegLikelihood(nn.Module):
@@ -113,6 +128,16 @@ class PhiSegLikelihood(nn.Module):
             post_c[i] = getattr(self, f"post_c{i}_merge1")(net)
 
         return tuple(
-            resize_nearest(getattr(self, f"out{i}")(post_c[i]), self.image_size).float()
+            at_least_f32(resize_nearest(getattr(self, f"out{i}")(post_c[i]), self.image_size))
             for i in range(L)
         )
+
+    # The PHiSeg likelihood has no x-dependent part: its sampling cache is
+    # empty and from_features simply decodes (ref families.py:214-222).
+    def features(self, x: torch.Tensor) -> tuple:
+        del x
+        return ()
+
+    def from_features(self, cache, z_list: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        del cache
+        return self(z_list)

@@ -4,7 +4,9 @@ Convolutions run NCHW inside the modules; the public resize and pool
 functions here take NCHW too. The dtype policy is the JAX package's
 (layers.py:146-216): parameters are f32, the convolution runs in the compute
 dtype, batch norm runs in f32, and the block's output is cast back to the
-compute dtype.
+compute dtype. A model made f64 (`compute_dtype="float64"` and
+`model.double()`, for round-off checks) stays f64 throughout: the f32
+islands widen to f64 rather than narrow (`at_least_f32`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,11 @@ BN_MOMENTUM = 0.01
 BN_EPS = 1e-3
 
 Activation = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or as it is if it is f64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -71,6 +78,14 @@ class BatchNorm(nn.Module):
     statistics itself: F.batch_norm normalises with the biased variance and,
     given momentum 1 and scratch buffers, hands back the batch mean and the
     unbiased variance, which is rescaled by (n-1)/n.
+
+    With a mesh (`set_batch_norm_mesh`), training mode is sync-BN, which is
+    what BN over a global array is in JAX (parallel/mesh.py:10-11): the
+    per-channel count, sum and sum of squares are all-reduced over the ranks
+    (differentiably, so the backward crosses ranks too), the batch is
+    normalised with Flax's biased variance E[x^2] - E[x]^2 in f32, and every
+    rank updates its running statistics from the same global values.
+    torch's SyncBatchNorm would store the unbiased variance.
     """
 
     def __init__(self, features: int):
@@ -79,12 +94,15 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.mesh = None  # a parallel.mesh.Mesh: sync-BN in training mode
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        x = at_least_f32(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS)
+        if self.mesh is not None:
+            return self._sync_forward(x)
         n = x.numel() // x.shape[1]
         if n < 2:
             raise ValueError(f"batch norm in training needs > 1 value per channel, got {n}")
@@ -97,6 +115,31 @@ class BatchNorm(nn.Module):
             self.running_var.mul_(1.0 - BN_MOMENTUM).add_(
                 batch_var * ((n - 1) / n), alpha=BN_MOMENTUM)
         return y
+
+    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        local_n = x.numel() // c
+        if local_n * self.mesh.world_size < 2:  # the ranks hold equal shards
+            raise ValueError("batch norm in training needs > 1 value per channel")
+        count = torch.full((1,), float(local_n), dtype=x.dtype, device=x.device)
+        stats = self.mesh.all_reduce_sum(
+            torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)  # flax clips at 0
+        scale = self.weight * torch.rsqrt(var + BN_EPS)
+        shift = self.bias - mean * scale
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
+            self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
+        return x * scale[None, :, None, None] + shift[None, :, None, None]
+
+
+def set_batch_norm_mesh(module: nn.Module, mesh) -> None:
+    """Make every BatchNorm under `module` sync-BN over `mesh` (None: local)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 class ConvBlock(nn.Module):

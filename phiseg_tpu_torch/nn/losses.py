@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from phiseg_tpu_torch.nn.layers import at_least_f32
+
 
 def one_hot(labels: torch.Tensor, nlabels: int, dtype=torch.float32) -> torch.Tensor:
     """Integer label map -> one-hot with class axis last (ref phiseg_model.py:29)."""
@@ -15,8 +17,9 @@ def one_hot(labels: torch.Tensor, nlabels: int, dtype=torch.float32) -> torch.Te
 
 
 def softmax_xent_with_logits(labels_oh: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """Per-element softmax cross-entropy over the last axis, in f32."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    """Per-element softmax cross-entropy over the last axis, in f32 (f64
+    for f64 logits)."""
+    logp = torch.log_softmax(at_least_f32(logits), dim=-1)
     return -torch.sum(labels_oh * logp, dim=-1)
 
 
@@ -32,13 +35,13 @@ def kl_two_gauss_diag_cov(mu0: torch.Tensor, sigma0: torch.Tensor,
 
     The reference numerics (phiseg_model.py:210-226): squares first, +1e-10
     inside both logs and the denominator, sum over all non-batch dims, mean
-    over the batch, all in f32.
+    over the batch, all in f32 (f64 for f64 inputs).
     """
     b = mu0.shape[0]
-    mu0 = mu0.float().reshape(b, -1)
-    mu1 = mu1.float().reshape(b, -1)
-    s0sq = torch.square(sigma0.float().reshape(b, -1))
-    s1sq = torch.square(sigma1.float().reshape(b, -1))
+    mu0 = at_least_f32(mu0).reshape(b, -1)
+    mu1 = at_least_f32(mu1).reshape(b, -1)
+    s0sq = torch.square(at_least_f32(sigma0).reshape(b, -1))
+    s1sq = torch.square(at_least_f32(sigma1).reshape(b, -1))
     per_sample = 0.5 * torch.sum(
         (s0sq + torch.square(mu1 - mu0)) / (s1sq + 1e-10)
         + torch.log(s1sq + 1e-10)

@@ -8,7 +8,11 @@ read each level once and keep the accumulation in registers:
 
   K1  forward:  (L,B,H,W,C) logits + (B,H,W,C) one-hot -> (L,) per-level
       mean-over-batch of the pixel-summed CE;
-  K2  backward: all L logit gradients in one pass, in the logits' dtype.
+  K2  backward: all L logit gradients in one pass, in the logits' dtype;
+  K3  data parallel (`fused_residual_ce_dp`): K1/K2 on each rank's local
+      batch shard, and an all_reduce averages the (L,) result over the ranks.
+      It has no kernel of its own, as the TPU's has no Pallas body: there the
+      pmean is a collective that XLA lowers outside any kernel.
 
 `fused_residual_ce` launches them for CUDA tensors and uses the plain
 version, `residual_ce_plain`, for CPU tensors only: a CUDA tensor gets the
@@ -45,7 +49,8 @@ _BLOCKS_PER_SM = 4
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else.
-LAUNCHES: Dict[str, int] = {"fused_residual_ce_fwd": 0, "fused_residual_ce_bwd": 0}
+LAUNCHES: Dict[str, int] = {"fused_residual_ce_fwd": 0, "fused_residual_ce_bwd": 0,
+                            "fused_residual_ce_dp": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -222,3 +227,20 @@ def fused_residual_ce(stacked_logits: torch.Tensor, s_oh: torch.Tensor) -> torch
     if stacked_logits.device.type == "cpu":
         return residual_ce_plain(stacked_logits, s_oh)
     return _FusedResidualCE.apply(stacked_logits, s_oh)
+
+
+def fused_residual_ce_dp(stacked_logits: torch.Tensor, s_oh: torch.Tensor, mesh) -> torch.Tensor:
+    """K3: the per-level CE of the GLOBAL batch on every rank (port of
+    phiseg_tpu/ops/fused_residual_ce.py:191-215).
+
+    stacked_logits (L, B/N, H, W, C) and s_oh (B/N, H, W, C) are this rank's
+    shard. K1/K2 run on it (the plain version for CPU tensors), and the mean
+    over the ranks of the local (L,) result is the global-batch mean, since
+    the shards are equal. The all_reduce is differentiable: its backward
+    all-reduces the cotangent (parallel/mesh.py), and the train step's
+    gradient averaging divides by the world size once.
+    """
+    out = mesh.mean(fused_residual_ce(stacked_logits, s_oh))
+    if stacked_logits.is_cuda:
+        LAUNCHES["fused_residual_ce_dp"] += 1
+    return out

@@ -76,7 +76,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     frce.reset_launch_counts()
     logits, s_oh = _case(2, 2, 4)
     frce.fused_residual_ce(torch.from_numpy(logits), torch.from_numpy(s_oh))
-    assert frce.LAUNCHES == {"fused_residual_ce_fwd": 0, "fused_residual_ce_bwd": 0}
+    assert frce.LAUNCHES == {"fused_residual_ce_fwd": 0, "fused_residual_ce_bwd": 0,
+                             "fused_residual_ce_dp": 0}
 
 
 def test_kernel_entry_points_refuse_cpu_tensors():

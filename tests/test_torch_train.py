@@ -191,7 +191,8 @@ def _tiny_cfg(tmp_path, **kw):
 
 def test_trainer_two_steps_through_the_cli(tmp_path):
     log_dir = tmp_path / "log"
-    trainer = cli_main([_tiny_cfg(tmp_path), "--num-iter", "2", "--log-dir", str(log_dir)])
+    trainer = cli_main([_tiny_cfg(tmp_path), "--num-iter", "2", "--log-dir", str(log_dir),
+                        "--device", "cpu"])
     recs = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
     assert [r["step"] for r in recs] == [0, 1]
     for r in recs:
@@ -207,13 +208,68 @@ def test_trainer_two_steps_through_the_cli(tmp_path):
 def test_trainer_raises_at_a_validation_step(tmp_path):
     with pytest.raises(NotImplementedError, match="validation"):
         cli_main([_tiny_cfg(tmp_path, validation_frequency=1), "--num-iter", "3",
-                  "--log-dir", str(tmp_path / "log")])
+                  "--log-dir", str(tmp_path / "log"), "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--distributed"]])
-def test_cli_data_parallel_flags_are_not_ported(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        cli_main([_tiny_cfg(tmp_path), *flag])
+def test_cli_mesh_trains_two_ranks_on_the_cpu(tmp_path):
+    """--mesh 2 --device cpu: two gloo ranks split the batch of 4; rank 0
+    alone writes the global losses (timeout 120 s for the ranks). On the CPU
+    the kernels' plain version runs, so no rank counts a launch."""
+    log_dir = tmp_path / "log"
+    ranks = cli_main([_tiny_cfg(tmp_path), "--num-iter", "2", "--log-dir", str(log_dir),
+                      "--device", "cpu", "--mesh", "2"], timeout=120)
+    assert [step for step, _ in ranks] == [2, 2]
+    for _, launches in ranks:
+        assert sorted(launches) == ["fused_residual_ce_bwd", "fused_residual_ce_dp",
+                                    "fused_residual_ce_fwd"]
+        assert not any(launches.values()), launches
+    recs = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1]
+    for r in recs:
+        assert all(math.isfinite(v) for k, v in r.items() if k.startswith("batch_")), r
+    assert len(list(log_dir.glob("events.out.tfevents.*"))) == 1
+
+
+def test_cli_distributed_joins_the_group_of_torchrun_env(tmp_path):
+    """--distributed: two processes given torchrun's environment (RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT) train 2 steps on gloo together;
+    each process has a timeout of 120 s."""
+    import os
+    import subprocess
+    import sys
+
+    from phiseg_tpu_torch.parallel.mesh import free_port
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    log_dir = tmp_path / "log"
+    cmd = [sys.executable, "-m", "phiseg_tpu_torch.cli.train", _tiny_cfg(tmp_path),
+           "--num-iter", "2", "--log-dir", str(log_dir), "--device", "cpu", "--distributed"]
+    base = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1", WORLD_SIZE="2",
+                MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    procs = [subprocess.Popen(cmd, cwd=root, env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)[-3000:]
+    recs = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1]
+
+
+def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    """The default device is cuda; without a card the CLI raises rather than
+    train on the CPU, with or without --mesh."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["--device", "cuda"], ["--mesh", "2"]):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            cli_main([_tiny_cfg(tmp_path), "--num-iter", "1", "--log-dir",
+                      str(tmp_path / "log"), *extra])
+    assert not (tmp_path / "log").exists()
 
 
 def test_prefetcher_hands_a_provider_error_to_the_consumer():
