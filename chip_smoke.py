@@ -6,11 +6,17 @@
 Phases, each fatal on failure:
   0. device: require CUDA, print the card's name and power limit, set and
      print the TF32 switches;
-  1. build the fused residual-CE kernels from phiseg_tpu_torch/csrc/;
+  1. build the fused residual-CE kernels from phiseg_tpu_torch/csrc/ and
+     print ptxas's registers and spills per kernel;
   2. hold K1 (forward) and K2 (backward) against their plain PyTorch version
-     at the main-path shape and at edge shapes, require bitwise-equal
-     reruns, and time kernel vs plain at the main-path shape (device time
-     with the host kept ahead, and per call by CUDA events);
+     at the main-path shape in every input form and memory layout (the
+     stacked (L,B,H,W,C) tensor, NHWC views of NCHW levels, levels
+     contiguous in NHWC), f32 and bf16, and at edge shapes that take K1's
+     scalar kernel (H*W = 81, misaligned levels); require bitwise-equal
+     reruns and the logits' dtype in the gradient; time kernel vs plain at
+     the main-path shape in both layouts: device time with the host kept
+     ahead, L2-warm and L2-cold (a 128 MB write, or read, between calls, its
+     own time subtracted), and per call by CUDA events;
   3. train `phiseg_7_5_synth` at full width (R=7, L=5, n0=32, 128x128,
      batch 12, bf16, BN, Adam, on-device augmentation) through
      phiseg_tpu_torch.cli.train.main for NUM_STEPS steps; check every logged
@@ -18,7 +24,13 @@ Phases, each fatal on failure:
      parameters moved and stay finite;
   4. from one saved state, one noise draw and one augmentation draw, run
      one full-width step with the fused kernels and one with the plain
-     version; the loss dicts and the gradients agree;
+     version; the loss dicts and the gradients agree. Then the step's CE in
+     context, on the model's own level tensors: forward + backward from the
+     likelihood's L output convolutions (through its resize and f32 cast)
+     and from its L f32 levels, each by the kernels as the objective calls
+     them, by `torch.stack` then the kernels (the layout before the kernels
+     read the levels in place), and by the plain version; all agree, device
+     time of each;
   5. data parallel, two gloo ranks sharing the card (NCCL refuses two ranks
      on one device), `phiseg_7_5_synth` at full width with the global batch
      of 12 split 6 + 6: one f32 step and one f64 step from a saved state
@@ -121,7 +133,7 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 10, warmup: int = 5) -> float:
+def device_ms(fn, iters: int = 10, warmup: int = 5, sleep_cycles: int = 200_000_000) -> float:
     """Device milliseconds per fn() call. A sleep kernel holds the stream
     while the host queues all the calls, so the CUDA events around them time
     back-to-back device work and none of the host's issue time."""
@@ -131,7 +143,7 @@ def device_ms(fn, iters: int = 10, warmup: int = 5) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)  # ~0.1 s of device clock cycles
+    torch.cuda._sleep(sleep_cycles)  # 200M cycles: ~0.1 s of device clock
     start.record()
     for _ in range(iters):
         fn()
@@ -158,15 +170,41 @@ def phase_device():
     return smi
 
 
+def _ptxas_report(text: str):
+    """(kernel, registers, spill line) per kernel entry in ptxas -v output,
+    the kernel named as kernel<type, classes, pixels a thread>."""
+    import re
+
+    rows, name = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"(frce_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d)E(?:Li(\d)E)?",
+                          m.group(1))
+            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}, C={k.group(3)}, "
+                    f"vec={k.group(4) or 1}>") if k else m.group(1)
+            spill = "no spill line"
+        elif name and "spill" in ln:
+            spill = ln.strip()
+        elif name and "Used" in ln:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            rows.append((name, regs, spill))
+            name = None
+    return rows
+
+
 def phase_build():
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
 
     t0 = time.perf_counter()
     frce._library()
-    spills = [ln for ln in str(frce.BUILD_INFO.get("ptxas", "")).splitlines()
-              if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill")]
+    rows = _ptxas_report(str(frce.BUILD_INFO.get("ptxas", "")))
+    spills = [r for r in rows if not r[2].startswith("0 bytes stack frame, 0 bytes spill")]
     say(f"build: {time.perf_counter() - t0:.3f} s (nvcc {frce.BUILD_INFO.get('seconds', 0):.3f} s, "
-        f"{len(spills)} ptxas lines report spills)")
+        f"{len(rows)} kernels, {len(spills)} with a stack frame or spills)")
+    for name, regs, spill in rows:
+        say(f"  ptxas {name}: {regs} registers; {spill}")
+    return rows
 
 
 def _case(levels, b, hw, nclass, dtype, seed):
@@ -179,41 +217,94 @@ def _case(levels, b, hw, nclass, dtype, seed):
     return logits, s_oh
 
 
+def _as_form(logits, form: str):
+    """The (L,B,H,W,C) logits as a caller hands them to the kernels: the
+    stacked tensor; NHWC views of L NCHW tensors ("levels"); L tensors
+    contiguous in NHWC ("rows"), as a channels-last model hands them out; or
+    rows one element off an aligned address ("rows+1")."""
+    import torch
+
+    if form == "stacked":
+        return logits
+    if form == "levels":
+        return [lv.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1) for lv in logits]
+    if form == "rows":
+        return [lv.contiguous() for lv in logits]
+    out = []
+    for lv in logits:
+        t = torch.empty(lv.numel() + 1, dtype=lv.dtype, device=lv.device)[1:].view(lv.shape)
+        out.append(t.copy_(lv))
+    return out
+
+
+def _variant(inp, s_oh) -> str:
+    """Which K1 instantiation the wrapper launches for these inputs, and the
+    levels' memory layout."""
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    levels = frce._levels_nchw(inp)
+    _, _, h, w = levels[0].shape
+    vec = frce.vector_kernel_fits(h * w, [t.data_ptr() for t in levels], levels[0].element_size(),
+                                  s_oh.data_ptr())
+    return f"K1 {'vector' if vec else 'scalar'}, {'planes' if frce._planes(levels) else 'rows'}"
+
+
+def _cold_pair(fn, flush, iters: int = 20):
+    """Device ms of fn() with the L2 cache flushed before each call: the
+    time of flush + fn less that of flush alone, in the order flush,
+    flush + fn, flush + fn, flush. Returns (ms, flush ms)."""
+    both = lambda: (flush(), fn())  # noqa: E731
+    dev = [device_ms(f, iters=iters) for f in (flush, both, both, flush)]
+    return (dev[1] + dev[2]) / 2 - (dev[0] + dev[3]) / 2, (dev[0] + dev[3]) / 2
+
+
 def phase_kernels():
     import torch
 
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
 
-    cases = [  # name, L, B, HW, C, dtype, per-level weights
-        ("main f32", 5, 12, 128, 2, torch.float32, None),
-        ("main bf16", 5, 12, 128, 2, torch.bfloat16, None),
-        ("L1", 1, 2, 16, 2, torch.float32, None),
-        ("L3 weighted", 3, 2, 16, 2, torch.float32, [1.0, 2.0, 0.5]),
-        ("P300", 3, 3, 10, 2, torch.float32, [1.0, 2.0, 0.5]),
+    cases = [  # name, L, B, HW, C, dtype, per-level weights, input form
+        ("main f32", 5, 12, 128, 2, torch.float32, None, "stacked"),
+        ("main bf16", 5, 12, 128, 2, torch.bfloat16, None, "stacked"),
+        ("L1", 1, 2, 16, 2, torch.float32, None, "stacked"),
+        ("L3 weighted", 3, 2, 16, 2, torch.float32, [1.0, 2.0, 0.5], "stacked"),
+        ("P300", 3, 3, 10, 2, torch.float32, [1.0, 2.0, 0.5], "stacked"),
+        ("main f32 levels", 5, 12, 128, 2, torch.float32, None, "levels"),
+        ("main bf16 levels", 5, 12, 128, 2, torch.bfloat16, None, "levels"),
+        ("main f32 rows", 5, 12, 128, 2, torch.float32, None, "rows"),
+        ("hw9 levels", 3, 2, 9, 2, torch.float32, [1.0, 2.0, 0.5], "levels"),
+        ("hw9 bf16 stacked", 3, 2, 9, 2, torch.bfloat16, [1.0, 2.0, 0.5], "stacked"),
+        ("main f32 rows+1", 5, 12, 128, 2, torch.float32, None, "rows+1"),
     ]
     errs = {}
-    for i, (name, levels, b, hw, nclass, dtype, w) in enumerate(cases):
+    for i, (name, levels, b, hw, nclass, dtype, w, form) in enumerate(cases):
         logits, s_oh = _case(levels, b, hw, nclass, dtype, seed=i)
+        inp = _as_form(logits, form)
         w = torch.tensor(w or [1.0] * levels, device="cuda")
-        out = frce.fused_residual_ce_forward(logits, s_oh)
-        grad = frce.fused_residual_ce_backward(logits, s_oh, w)
-        out2 = frce.fused_residual_ce_forward(logits, s_oh)
-        grad2 = frce.fused_residual_ce_backward(logits, s_oh, w)
+        out = frce.fused_residual_ce_forward(inp, s_oh)
+        grad = frce.fused_residual_ce_backward(inp, s_oh, w)
+        out2 = frce.fused_residual_ce_forward(inp, s_oh)
+        grad2 = frce.fused_residual_ce_backward(inp, s_oh, w)
         ref_in = logits.clone().requires_grad_(True)
         ref = frce.residual_ce_plain(ref_in, s_oh)
         (ref_grad,) = torch.autograd.grad(ref, ref_in, grad_outputs=w)
         torch.cuda.synchronize()
+        same = torch.equal(out, out2) and all(torch.equal(x, y) for x, y in zip(grad, grad2))
+        shapes = ([tuple(grad.shape)] if form == "stacked" else [tuple(x.shape) for x in grad]) == (
+            [tuple(logits.shape)] if form == "stacked" else [tuple(x.shape) for x in inp])
+        dtypes = {x.dtype for x in ([grad] if form == "stacked" else grad)}
+        grad = torch.stack(list(grad))
         rtol, atol = TOLERANCE[str(dtype).split(".")[-1]]
         fwd_rel = ((out - ref.detach()).abs() / ref.detach().abs()).max().item()
         fwd_abs = (out - ref.detach()).abs().max().item()
         grad_abs = (grad.float() - ref_grad.float()).abs().max().item()
-        same = torch.equal(out, out2) and torch.equal(grad, grad2)
-        say(f"kernel check {name}: fwd rel {fwd_rel:.3e} (tol {rtol:g}), grad abs "
-            f"{grad_abs:.3e} (tol {atol:g}), grad dtype {grad.dtype}, bitwise rerun {same}")
+        say(f"kernel check {name} ({form}; {_variant(inp, s_oh)}): fwd rel {fwd_rel:.3e} "
+            f"(tol {rtol:g}), grad abs {grad_abs:.3e} (tol {atol:g}), grad dtype "
+            f"{sorted(str(d) for d in dtypes)}, shapes as the input's {shapes}, bitwise rerun {same}")
         if not (fwd_rel <= rtol and grad_abs <= atol):
             fail(f"kernel disagrees with its plain version on {name}")
-        if grad.dtype != logits.dtype or not same:
-            fail(f"kernel gradient dtype or determinism wrong on {name}")
+        if dtypes != {logits.dtype} or not shapes or not same:
+            fail(f"kernel gradient dtype, shapes or determinism wrong on {name}")
         if name == "main f32":
             errs = {"fwd": fwd_abs, "bwd": grad_abs}
 
@@ -221,31 +312,47 @@ def phase_kernels():
     w = torch.ones(5, device="cuda")
     ref_in = logits.clone().requires_grad_(True)
     ref = frce.residual_ce_plain(ref_in, s_oh)
+    scratch = torch.empty(32 * 2 ** 20, device="cuda")  # 128 MiB, over twice the 50 MB L2
+    flushes = {"write": lambda: scratch.fill_(1.0), "read": lambda: scratch.sum()}
 
     def plain_fwd():
         with torch.no_grad():
             frce.residual_ce_plain(logits, s_oh)
 
-    fns = {
-        "fwd": (lambda: frce.fused_residual_ce_forward(logits, s_oh), plain_fwd),
-        "bwd": (lambda: frce.fused_residual_ce_backward(logits, s_oh, w),
-                lambda: torch.autograd.grad(ref, ref_in, grad_outputs=w, retain_graph=True)),
-    }
     read = (logits.numel() + s_oh.numel()) * 4
     moved = {"fwd": read, "bwd": read + logits.numel() * 4}  # bytes the kernel must move
-    times, plain = {}, {}
-    for k, (kernel_fn, plain_fn) in fns.items():
-        # plain, kernel, kernel, plain: the mean of each pair
-        dev = [device_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
-        times[k], plain[k] = (dev[1] + dev[2]) / 2, (dev[0] + dev[3]) / 2
-        call_k, call_p = cuda_ms(kernel_fn), cuda_ms(plain_fn)
-        say(f"time {k} at L5 B12 128x128 C2 f32, L2-warm: device {times[k]:.4f} ms kernel vs "
-            f"{plain[k]:.4f} ms plain (CUDA events, host kept ahead; runs {', '.join(f'{d:.4f}' for d in dev)}); "
-            f"per call incl. host issue {call_k:.4f} ms kernel vs {call_p:.4f} ms plain "
-            f"(CUDA events, median of 50); kernel moves {moved[k] / 1e6:.2f} MB, "
-            f"{moved[k] / times[k] / 1e9:.3f} TB/s = {moved[k] / times[k] / 1e9 / 3.35:.1%} "
-            f"of the H100's 3.35 TB/s")
-    return errs, times, plain
+    times = {}  # (kernel, layout) -> {"warm", "cold", "cold_read", "flush", "plain", ...}; "floor"
+    for layout, form in (("rows", "rows"), ("planes", "levels")):
+        inp = _as_form(logits, form)
+        fns = {
+            "fwd": (lambda: frce.fused_residual_ce_forward(inp, s_oh), plain_fwd),
+            "bwd": (lambda: frce.fused_residual_ce_backward(inp, s_oh, w),
+                    lambda: torch.autograd.grad(ref, ref_in, grad_outputs=w, retain_graph=True)),
+        }
+        for k, (kernel_fn, plain_fn) in fns.items():
+            # plain, kernel, kernel, plain: the mean of each pair
+            dev = [device_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
+            t = {"warm": (dev[1] + dev[2]) / 2, "plain": (dev[0] + dev[3]) / 2}
+            t["cold"], t["flush"] = _cold_pair(kernel_fn, flushes["write"])
+            t["cold_read"], t["flush_read"] = _cold_pair(kernel_fn, flushes["read"])
+            t["call"], t["call_plain"] = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+            times[k, layout] = t
+            say(f"time {k} at L5 B12 128x128 C2 f32, {layout} ({_variant(inp, s_oh)}): device "
+                f"{t['cold']:.4f} ms L2-cold (a 128 MB write between calls, its "
+                f"{t['flush']:.4f} ms subtracted), {t['cold_read']:.4f} ms L2-cold by a 128 MB "
+                f"read ({t['flush_read']:.4f} ms subtracted), {t['warm']:.4f} ms L2-warm vs "
+                f"{t['plain']:.4f} ms plain (CUDA events, host kept ahead; warm runs "
+                f"{', '.join(f'{d:.4f}' for d in dev)}); per call incl. host issue "
+                f"{t['call']:.4f} ms kernel vs {t['call_plain']:.4f} ms plain (CUDA events, "
+                f"median of 50); kernel moves {moved[k] / 1e6:.2f} MB: "
+                f"{moved[k] / t['cold'] / 1e9:.3f} TB/s cold = "
+                f"{moved[k] / t['cold'] / 1e9 / 3.35:.1%} of the H100's 3.35 TB/s")
+    del scratch
+    one = torch.zeros(1, device="cuda")
+    times["floor"] = device_ms(lambda: one.add_(1.0), iters=20)
+    say(f"launch floor: a one-element kernel, back to back, {times['floor']:.4f} ms device per "
+        f"call (CUDA events, host kept ahead)")
+    return errs, times
 
 
 def phase_slice():
@@ -370,6 +477,89 @@ def phase_in_context(cfg):
         fail("the step with the kernels disagrees with the step with the plain version")
     if not (head_rel <= 1e-3 and all_rel <= 3 * all_noise + 1e-3):
         fail("the step's gradients with the kernels disagree with those with the plain version")
+    model = create_train_state(cfg, device).model
+    model.load_state_dict(init)
+    return _ce_in_context(cfg, model, x, s)
+
+
+def _ce_in_context(cfg, model, x, s):
+    """The step's CE forward + backward on the model's own level tensors,
+    from the likelihood's output convolutions (through its resize and f32
+    cast) and from its f32 levels, by the kernels as the objective calls
+    them, by torch.stack then the kernels, and by the plain version. Holds
+    the three to each other and returns the levels' memory layout and the
+    device ms of each span and way. The posterior's noise is drawn from a
+    generator, as in the train step: the levels' memory layout follows the
+    noise's."""
+    import torch
+
+    from phiseg_tpu_torch.nn.layers import at_least_f32, nhwc, resize_nearest
+    from phiseg_tpu_torch.nn.losses import one_hot
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    L = cfg.latent_levels
+    s_oh = one_hot(s, cfg.nlabels)
+    convs = {}
+    hooks = [getattr(model.likelihood, f"out{i}").register_forward_hook(
+        lambda mod, inp, out, i=i: convs.__setitem__(i, out.detach().clone())) for i in range(L)]
+    try:
+        with torch.no_grad():
+            levels = model(x, s_oh, generator=torch.Generator(device=x.device).manual_seed(9)
+                           ).s_out_list
+    finally:
+        for h in hooks:
+            h.remove()
+    read = frce._levels_nchw(levels)
+    in_place = all(a.data_ptr() == b.data_ptr() for a, b in zip(read, levels))
+    layout = "planes" if frce._planes(read) else "rows"
+    say(f"in context: the likelihood's {L} f32 levels {tuple(levels[0].shape)} (strides "
+        f"{levels[0].stride()}) are {layout} in memory; the kernels read them in place: {in_place}")
+    if not in_place:
+        fail("the kernels' inputs are a copy of the model's level tensors")
+
+    w = torch.ones(L, device=x.device)
+    ce = {"kernels": lambda v: frce.fused_residual_ce(v, s_oh),
+          "stack": lambda v: frce.fused_residual_ce(torch.stack(list(v)), s_oh),
+          "plain": lambda v: frce.residual_ce_plain(v, s_oh)}
+    conv_leaves = [convs[i].requires_grad_(True) for i in range(L)]
+    level_leaves = [t.detach().clone().requires_grad_(True) for t in levels]
+
+    def convs_fn(way):  # the likelihood's output convolutions -> their gradients
+        per = ce[way]([nhwc(at_least_f32(resize_nearest(t, cfg.image_hw))) for t in conv_leaves])
+        return per, torch.autograd.grad(per, conv_leaves, grad_outputs=w)
+
+    def levels_fn(way):  # the f32 levels -> their gradients
+        per = ce[way](level_leaves)
+        return per, torch.autograd.grad(per, level_leaves, grad_outputs=w)
+
+    times = {}
+    spans = {"convs": (convs_fn, f"{cfg.compute_dtype} output convolutions", 1e-2),
+             "levels": (levels_fn, "f32 levels", TOLERANCE["float32"][1])}
+    for span, (fn, what, gtol) in spans.items():
+        outs = {way: fn(way) for way in ce}
+        ref_per, ref_g = outs["plain"]
+        for way in ("kernels", "stack"):
+            per, g = outs[way]
+            rel = ((per - ref_per).abs() / ref_per.abs()).max().item()
+            gerr = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                       for a, b in zip(g, ref_g))
+            say(f"in context CE from the {what}, {way} vs plain: losses rel {rel:.3e} (tol "
+                f"{TOLERANCE['float32'][0]:g}), gradients max|diff|/max|plain| {gerr:.3e} "
+                f"(tol {gtol:g})")
+            if not (rel <= TOLERANCE["float32"][0] and gerr <= gtol):
+                fail(f"in context, the CE by {way} disagrees with the plain version")
+        order = ("kernels", "stack", "plain", "plain", "stack", "kernels")
+        dev = [device_ms(lambda: fn(way), iters=10, sleep_cycles=1_000_000_000) for way in order]
+        t = {way: (dev[order.index(way)] + dev[len(order) - 1 - order.index(way)]) / 2
+             for way in ce}
+        times[span] = t
+        say(f"in context CE forward + backward from the {L} {what} (device ms, CUDA events, host "
+            f"kept ahead, runs {', '.join(f'{d:.4f}' for d in dev)}): kernels on the levels in "
+            f"place {t['kernels']:.4f}, torch.stack then the kernels {t['stack']:.4f}, plain "
+            f"{t['plain']:.4f}")
+    times["stack alone"] = device_ms(lambda: torch.stack(list(level_leaves)), iters=20)
+    say(f"in context: torch.stack of the {L} f32 levels alone {times['stack alone']:.4f} ms device")
+    return layout, times
 
 
 def _latent_eps(cfg, batch, generator):
@@ -697,9 +887,9 @@ def phase_sampler(trainer):
 def main() -> None:
     smi = phase_device()
     phase_build()
-    errs, times, plain = phase_kernels()
+    errs, times = phase_kernels()
     launches, cfg, trainer = phase_slice()
-    phase_in_context(cfg)
+    layout, _ = phase_in_context(cfg)
     dp_outs, k3_err = phase_dp(cfg)
     phase_mesh1()
     phase_sampler(trainer)
@@ -710,11 +900,14 @@ def main() -> None:
     kernels = []
     for k in ("fwd", "bwd"):
         b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels, cfg.nlabels, k == "bwd"))
+        t = times[k, layout]  # in the memory layout of the main path's levels
         kernels.append(
             {"name": f"fused_residual_ce_{k}", "route": "cuda", "source": KERNEL_SOURCE,
              "replaces": TPU_KERNELS[k], "launches": launches[f"fused_residual_ce_{k}"],
-             "max_abs_err": errs[k], "ms": times[k], "plain_ms": plain[k],
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+             "max_abs_err": errs[k], "ms": t["cold"], "plain_ms": t["plain"],
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "ms_l2_warm": t["warm"], "ms_l2_cold_read_flush": t["cold_read"],
+             "share_of_bound": b_ms / t["cold"], "layout": layout})
     # K3 on one rank: K1 over its shard (the all_reduce moves L floats)
     b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels // DP_WORLD, cfg.nlabels, False))
     kernels.append(

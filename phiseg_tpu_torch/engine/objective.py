@@ -35,13 +35,13 @@ def residual_multinoulli_loss(s_out_list: Sequence[torch.Tensor], s_oh: torch.Te
                               use_fused: bool = False, mesh=None
                               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Sum over levels of CE(accumulated logits, GT) (ref :241-262); the
-    global-batch value under a mesh."""
+    global-batch value under a mesh. The fused kernels read the model's level
+    tensors in place."""
     if use_fused:
-        stacked = torch.stack(list(s_out_list), dim=0)
         if mesh is not None:
-            per_level = fused_residual_ce_dp(stacked, s_oh, mesh)
+            per_level = fused_residual_ce_dp(s_out_list, s_oh, mesh)
         else:
-            per_level = fused_residual_ce(stacked, s_oh)
+            per_level = fused_residual_ce(s_out_list, s_oh)
     else:
         per_level = residual_ce_plain(s_out_list, s_oh)
         if mesh is not None:

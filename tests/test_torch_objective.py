@@ -12,14 +12,20 @@ import torch
 
 from phiseg_tpu.engine.config import ExperimentConfig as JaxConfig
 from phiseg_tpu.engine.objective import phiseg_objective as jax_objective
+from phiseg_tpu.engine.objective import residual_multinoulli_loss as jax_residual_ce
 from phiseg_tpu.engine.objective import weight_decay_loss as jax_weight_decay
 from phiseg_tpu.models import SegVAE as JaxSegVAE
 from phiseg_tpu.models.segvae import ModelOutputs as JaxOutputs
 from phiseg_tpu_torch.convert import flax_to_state_dict
 from phiseg_tpu_torch.engine.config import ExperimentConfig
-from phiseg_tpu_torch.engine.objective import phiseg_objective, weight_decay_loss
+from phiseg_tpu_torch.engine.objective import (
+    phiseg_objective,
+    residual_multinoulli_loss,
+    weight_decay_loss,
+)
 from phiseg_tpu_torch.models import SegVAE
 from phiseg_tpu_torch.models.segvae import ModelOutputs
+from phiseg_tpu_torch.ops import fused_residual_ce as frce
 
 torch.set_num_threads(1)
 
@@ -88,3 +94,35 @@ def test_weight_decay_matches_jax():
     _, got = phiseg_objective(to, torch.from_numpy(s_oh), ExperimentConfig(weight_decay_weight=1e-4),
                               model=tmod)
     np.testing.assert_allclose(float(got["weight_decay"]), 1e-4 * want, rtol=1e-5)
+
+
+def test_fused_ce_on_the_models_levels_matches_jax_and_reads_them_in_place():
+    """The fused CE on a port model's own s_out_list (NHWC views of the
+    likelihood's NCHW-shaped tensors, channels-last in memory here): the
+    kernels' inputs are those tensors, not a copy, and the losses and
+    gradients match the JAX fused objective."""
+    kw = dict(model_family="phiseg", latent_levels=3, resolution_levels=5, n0=4, zdim0=2,
+              nlabels=2, image_size=(32, 32), norm="batch")
+    torch.manual_seed(0)
+    model = SegVAE(**kw, dtype=torch.float32, image_channels=1)
+    rng = np.random.RandomState(0)
+    x = rng.randn(2, 32, 32, 1).astype(np.float32)
+    s_oh = np.eye(2, dtype=np.float32)[(rng.rand(2, 32, 32) > 0.5).astype(np.int64)]
+    levels = model(torch.from_numpy(x), torch.from_numpy(s_oh),
+                   generator=torch.Generator().manual_seed(0)).s_out_list
+    for t, n in zip(levels, frce._levels_nchw(levels)):
+        assert n.is_contiguous() or n.is_contiguous(memory_format=torch.channels_last)
+        assert n.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()
+        assert n.data_ptr() == t.data_ptr()
+    total, got = residual_multinoulli_loss(levels, torch.from_numpy(s_oh), use_fused=True)
+    grads = torch.autograd.grad(total, levels)
+    arrays = [jnp.asarray(t.detach().numpy()) for t in levels]
+    want_total, want = jax_residual_ce(arrays, jnp.asarray(s_oh), use_fused=True)
+    want_g = jax.grad(lambda a: jax_residual_ce(a, jnp.asarray(s_oh), use_fused=True)[0])(arrays)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(float(total), float(want_total), rtol=1e-5)
+    for i, (g, w) in enumerate(zip(grads, want_g)):
+        assert g.shape == levels[i].shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-6, err_msg=str(i))
