@@ -11,12 +11,13 @@ Phases, each fatal on failure:
   2. hold K1 (forward) and K2 (backward) against their plain PyTorch version
      at the main-path shape in every input form and memory layout (the
      stacked (L,B,H,W,C) tensor, NHWC views of NCHW levels, levels
-     contiguous in NHWC), f32 and bf16, and at edge shapes that take K1's
-     scalar kernel (H*W = 81, misaligned levels); require bitwise-equal
-     reruns and the logits' dtype in the gradient; time kernel vs plain at
-     the main-path shape in both layouts: device time with the host kept
-     ahead, L2-warm and L2-cold (a 128 MB write, or read, between calls, its
-     own time subtracted), and per call by CUDA events;
+     contiguous in NHWC), f32 and bf16, and at edge shapes: the scalar
+     instantiations (H*W = 81, misaligned levels), C = 1, 3, 4 and L = 8 in
+     both layouts; each line names the instantiations launched; require
+     bitwise-equal reruns and the logits' dtype in the gradient; time kernel
+     vs plain at the main-path shape in both layouts: device time with the
+     host kept ahead, L2-warm and L2-cold (a 128 MB write, or read, between
+     calls, its own time subtracted), and per call by CUDA events;
   3. train `phiseg_7_5_synth` at full width (R=7, L=5, n0=32, 128x128,
      batch 12, bf16, BN, Adam, on-device augmentation) through
      phiseg_tpu_torch.cli.train.main for NUM_STEPS steps; check every logged
@@ -172,17 +173,21 @@ def phase_device():
 
 def _ptxas_report(text: str):
     """(kernel, registers, spill line) per kernel entry in ptxas -v output,
-    the kernel named as kernel<type, classes, pixels a thread>."""
+    the kernel named as K1 kernel<type, classes, pixels a thread> or K2
+    kernel<type, classes, layout, pixels a thread>."""
     import re
 
     rows, name = [], None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"(frce_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d)E(?:Li(\d)E)?",
-                          m.group(1))
-            name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}, C={k.group(3)}, "
-                    f"vec={k.group(4) or 1}>") if k else m.group(1)
+            k = re.search(r"(frce_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d)E(?:Lb([01])E)?"
+                          r"(?:Li(\d)E)?", m.group(1))
+            name = m.group(1)
+            if k:  # K2 has a layout parameter (Lb1E planes, Lb0E rows); K1 has none
+                layout = {None: "", "1": "planes, ", "0": "rows, "}[k.group(4)]
+                name = (f"{k.group(1)}<{'f32' if k.group(2) == 'f' else 'bf16'}, C={k.group(3)}, "
+                        f"{layout}{'vec' if k.group(4) is None else 'px'}={k.group(5) or 1}>")
             spill = "no spill line"
         elif name and "spill" in ln:
             spill = ln.strip()
@@ -238,15 +243,20 @@ def _as_form(logits, form: str):
 
 
 def _variant(inp, s_oh) -> str:
-    """Which K1 instantiation the wrapper launches for these inputs, and the
-    levels' memory layout."""
+    """Which K1 and K2 instantiations the wrappers launch for these inputs,
+    and the levels' memory layout. K2's choice is made on the levels; its
+    gradients, one fresh allocation in the levels' layout, are aligned
+    whenever H*W is a multiple of the pixels a thread."""
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
 
     levels = frce._levels_nchw(inp)
-    _, _, h, w = levels[0].shape
-    vec = frce.vector_kernel_fits(h * w, [t.data_ptr() for t in levels], levels[0].element_size(),
-                                  s_oh.data_ptr())
-    return f"K1 {'vector' if vec else 'scalar'}, {'planes' if frce._planes(levels) else 'rows'}"
+    _, nclass, h, w = levels[0].shape
+    ptrs, item = [t.data_ptr() for t in levels], levels[0].element_size()
+    planes = frce._planes(levels)
+    k1 = frce.vector_kernel_fits(h * w, ptrs, item, s_oh.data_ptr())
+    k2 = frce.backward_vector_fits(h * w, nclass, planes, ptrs, item, s_oh.data_ptr())
+    return (f"K1 {'vector' if k1 else 'scalar'}, K2 "
+            f"{f'vector ({frce.BWD_PX} px)' if k2 else 'scalar'}, {'planes' if planes else 'rows'}")
 
 
 def _cold_pair(fn, flush, iters: int = 20):
@@ -275,6 +285,19 @@ def phase_kernels():
         ("hw9 levels", 3, 2, 9, 2, torch.float32, [1.0, 2.0, 0.5], "levels"),
         ("hw9 bf16 stacked", 3, 2, 9, 2, torch.bfloat16, [1.0, 2.0, 0.5], "stacked"),
         ("main f32 rows+1", 5, 12, 128, 2, torch.float32, None, "rows+1"),
+        ("main bf16 rows", 5, 12, 128, 2, torch.bfloat16, None, "rows"),
+        ("C1 levels", 3, 2, 16, 1, torch.float32, [1.0, 2.0, 0.5], "levels"),
+        ("C1 bf16 rows", 3, 2, 16, 1, torch.bfloat16, [1.0, 2.0, 0.5], "rows"),
+        ("C3 levels", 3, 2, 16, 3, torch.float32, [1.0, 2.0, 0.5], "levels"),
+        ("C3 rows", 3, 2, 16, 3, torch.float32, [1.0, 2.0, 0.5], "rows"),
+        ("C3 bf16 rows", 3, 2, 16, 3, torch.bfloat16, [1.0, 2.0, 0.5], "rows"),
+        ("C4 levels", 3, 2, 16, 4, torch.float32, [1.0, 2.0, 0.5], "levels"),
+        ("C4 bf16 rows", 3, 2, 16, 4, torch.bfloat16, [1.0, 2.0, 0.5], "rows"),
+        ("hw9 C3 rows", 3, 2, 9, 3, torch.float32, [1.0, 2.0, 0.5], "rows"),
+        ("C3 rows+1", 3, 2, 16, 3, torch.float32, [1.0, 2.0, 0.5], "rows+1"),
+        ("L8 levels", 8, 2, 16, 2, torch.float32, [1.0, 2.0, 0.5, 1.5, 0.25, 3.0, 1.0, 2.0],
+         "levels"),
+        ("L8 C4 bf16 rows", 8, 12, 16, 4, torch.bfloat16, None, "rows"),
     ]
     errs = {}
     for i, (name, levels, b, hw, nclass, dtype, w, form) in enumerate(cases):
@@ -295,7 +318,8 @@ def phase_kernels():
         dtypes = {x.dtype for x in ([grad] if form == "stacked" else grad)}
         grad = torch.stack(list(grad))
         rtol, atol = TOLERANCE[str(dtype).split(".")[-1]]
-        fwd_rel = ((out - ref.detach()).abs() / ref.detach().abs()).max().item()
+        # with C = 1 the CE is exactly 0 in both: the floor keeps 0 / 0 out
+        fwd_rel = ((out - ref.detach()).abs() / ref.detach().abs().clamp_min(1e-30)).max().item()
         fwd_abs = (out - ref.detach()).abs().max().item()
         grad_abs = (grad.float() - ref_grad.float()).abs().max().item()
         say(f"kernel check {name} ({form}; {_variant(inp, s_oh)}): fwd rel {fwd_rel:.3e} "
@@ -336,8 +360,9 @@ def phase_kernels():
             t["cold"], t["flush"] = _cold_pair(kernel_fn, flushes["write"])
             t["cold_read"], t["flush_read"] = _cold_pair(kernel_fn, flushes["read"])
             t["call"], t["call_plain"] = cuda_ms(kernel_fn), cuda_ms(plain_fn)
+            t["variant"] = _variant(inp, s_oh)
             times[k, layout] = t
-            say(f"time {k} at L5 B12 128x128 C2 f32, {layout} ({_variant(inp, s_oh)}): device "
+            say(f"time {k} at L5 B12 128x128 C2 f32, {layout} ({t['variant']}): device "
                 f"{t['cold']:.4f} ms L2-cold (a 128 MB write between calls, its "
                 f"{t['flush']:.4f} ms subtracted), {t['cold_read']:.4f} ms L2-cold by a 128 MB "
                 f"read ({t['flush_read']:.4f} ms subtracted), {t['warm']:.4f} ms L2-warm vs "
@@ -396,7 +421,7 @@ def phase_slice():
     if launches["fused_residual_ce_dp"]:
         fail("K3 launched in a run without a mesh")
 
-    init = build_model(cfg, seed=cfg.seed).state_dict()
+    init = build_model(cfg, device="cpu", seed=cfg.seed).state_dict()
     trained = trainer.state.model.state_dict()
     params = [n for n, _ in trainer.state.model.named_parameters()]
     unchanged = [n for n in params if torch.equal(init[n], trained[n].cpu())]
@@ -907,7 +932,7 @@ def main() -> None:
              "max_abs_err": errs[k], "ms": t["cold"], "plain_ms": t["plain"],
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
              "ms_l2_warm": t["warm"], "ms_l2_cold_read_flush": t["cold_read"],
-             "share_of_bound": b_ms / t["cold"], "layout": layout})
+             "share_of_bound": b_ms / t["cold"], "layout": layout, "variant": t["variant"]})
     # K3 on one rank: K1 over its shard (the all_reduce moves L floats)
     b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels // DP_WORLD, cfg.nlabels, False))
     kernels.append(

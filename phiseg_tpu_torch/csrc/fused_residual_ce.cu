@@ -48,14 +48,28 @@
 //    int per device, zeroed once by the wrapper) returns to 0 at the last
 //    ticket by the atomic increment's wrap. One counter serves one launch at
 //    a time, which holds because the port launches on one stream per process.
-//  * K2 keeps one thread per pixel (4 pixels a thread measured slower: a
-//    thread's softmax and cumulative sums over 4 pixels make a long serial
-//    path, and the grid has a quarter of the threads to hide it). It reads
-//    and writes the levels in their layout, keeps the per-level terms in
-//    registers and writes their ascending cumulative sum.
+//  * K2 (replaces _bwd_kernel, phiseg_tpu/ops/fused_residual_ce.py:76; bound
+//    5.16 us at the main shape) is one wave of independent threads with no
+//    sum across them, so its time beyond the bytes is the DRAM round trip
+//    and the store drain of one pass. Its design shortens what each thread
+//    does before its loads go out and between its loads and its stores.
+//    blockIdx.y is the image and blockIdx.x a tile of it: no division, one
+//    64-bit image base per thread, 32-bit offsets inside the image. The
+//    layout (planes or rows) is a template parameter, as is the access
+//    width: the vector instantiation takes kBwdPx = 2 pixels a thread, one
+//    access per level and class plane (8 bytes f32, 4 bf16) or per level in
+//    rows (2 * C elements: 16 bytes f32 at C = 2) and one for its labels,
+//    bf16 gradients stored as packed pairs. The two pixels' softmax chains
+//    are independent (instruction-level parallelism, not a serial path:
+//    4 pixels a thread measured slower, scripts/k2_variants.py). The scalar
+//    instantiation (one pixel, element accesses) takes odd H*W and
+//    misaligned tensors, chosen by the wrapper's explicit check; the host
+//    entry point refuses a vector launch that does not fit. 1 / sum(exp) is
+//    the SFU's approximate reciprocal (sum in [1, C]).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -66,6 +80,9 @@ constexpr int kMaxClasses = 4;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 4;
+constexpr int kBwdPx = 2;  // pixels a thread of K2's vector instantiation
+static_assert(kBwdPx > 1, "one pixel a thread is K2's scalar instantiation");
+constexpr int kMaxBatch = 65535;  // K2's images, on gridDim.y
 
 // The L level tensors and K2's L gradients, all in one layout: NCHW planes
 // (planes = 1) or pixel-major (B, H, W, C) rows (planes = 0).
@@ -78,15 +95,14 @@ struct Levels {
   long long pixels;  // B*H*W
 };
 
-// VEC consecutive elements widened to f32: VEC = kVec is one load of
-// VEC * sizeof(T) bytes. VEC = 1 also stores, narrowing from f32.
+// K1's loads: VEC consecutive elements widened to f32, VEC = kVec in one load
+// of VEC * sizeof(T) bytes.
 template <typename T, int VEC>
 struct Vec;
 
 template <>
 struct Vec<float, 1> {
   static __device__ __forceinline__ void load(const float* p, float* o) { o[0] = __ldg(p); }
-  static __device__ __forceinline__ void store(float* p, const float* v) { p[0] = v[0]; }
 };
 
 template <>
@@ -104,9 +120,6 @@ template <>
 struct Vec<__nv_bfloat16, 1> {
   static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* o) {
     o[0] = __bfloat162float(p[0]);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* v) {
-    p[0] = __float2bfloat16(v[0]);
   }
 };
 
@@ -144,16 +157,6 @@ __device__ __forceinline__ void load_pixels(const T* x, bool planes, long long p
   }
 }
 
-// One pixel's C classes to pixel p of a level (the inverse of
-// load_pixels with VEC = 1).
-template <typename T, int NC>
-__device__ __forceinline__ void store_pixel(T* x, bool planes, long long plane_off, long long p,
-                                            long long hw, const float (&val)[NC]) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c) Vec<T, 1>::store(x + (planes ? plane_off + c * hw : p * NC + c),
-                                                &val[c]);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -162,11 +165,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 // The labels of VEC pixels from pixel p, y[c][k], and every level's logits of
 // them: v[i][c][k] is level i, class c, pixel p + k. All loads issue before
-// any use. Returns the NCHW element offset of (image of p, class 0, pixel p).
+// any use.
 template <typename T, int NC, int VEC>
-__device__ __forceinline__ long long load_group(const Levels& lv, const float* labels, long long p,
-                                                float (&y)[NC][VEC],
-                                                float (&v)[kMaxLevels][NC][VEC]) {
+__device__ __forceinline__ void load_group(const Levels& lv, const float* labels, long long p,
+                                           float (&y)[NC][VEC], float (&v)[kMaxLevels][NC][VEC]) {
   const long long b = p / lv.hw;
   const long long off = b * NC * lv.hw + (p - b * lv.hw);
   load_pixels<float, NC, VEC>(labels, false, off, p, lv.hw, y);
@@ -174,7 +176,6 @@ __device__ __forceinline__ long long load_group(const Levels& lv, const float* l
   for (int i = 0; i < kMaxLevels; ++i)
     if (i < lv.levels)
       load_pixels<T, NC, VEC>(static_cast<const T*>(lv.x[i]), lv.planes, off, p, lv.hw, v[i]);
-  return off;
 }
 
 template <typename T, int NC, int VEC>
@@ -269,21 +270,185 @@ frce_fwd_kernel(const Levels lv, const float* __restrict__ labels, float* __rest
   }
 }
 
-// One thread per pixel. At least four blocks per SM: with that bound ptxas
-// keeps every instantiation free of spills (without it, f32 C=1 spilled).
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads, 4)
+// ---------------------------------------------------------------------------
+// K2's accesses: a run of N consecutive elements in accesses of W bytes, W
+// fixed at compile time (W = sizeof(T): one element an access, any alignment)
+// ---------------------------------------------------------------------------
+
+// The widest access (16, 8 or 4 bytes) that tiles a run of `bytes`, else one
+// element (`elem` bytes) an access.
+__host__ __device__ constexpr int access_bytes(int bytes, int elem) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4 : elem;
+}
+
+template <int W>
+__device__ __forceinline__ void load_words(const unsigned* p, unsigned* w) {
+  if constexpr (W == 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (W == 8) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    w[0] = __ldg(p);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_words(unsigned* p, const unsigned* w) {
+  if constexpr (W == 16)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else if constexpr (W == 8)
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  else
+    *p = w[0];
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Element k of a run held as 32-bit words (bf16: two to a word, low half first).
+template <typename T>
+__device__ __forceinline__ float word_elem(const unsigned* w, int k) {
+  if constexpr (sizeof(T) == 4)
+    return __uint_as_float(w[k]);
+  else
+    return __uint_as_float(k % 2 ? w[k / 2] & 0xffff0000u : w[k / 2] << 16);
+}
+
+template <typename T, int N, int W>
+__device__ __forceinline__ void load_run(const T* p, float (&out)[N]) {
+  if constexpr (W == sizeof(T)) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = to_f32(__ldg(p + k));
+  } else {
+    constexpr int kWords = N * sizeof(T) / 4;
+    unsigned w[kWords];
+#pragma unroll
+    for (int a = 0; a < kWords; a += W / 4)
+      load_words<W>(reinterpret_cast<const unsigned*>(p) + a, w + a);
+#pragma unroll
+    for (int k = 0; k < N; ++k) out[k] = word_elem<T>(w, k);
+  }
+}
+
+template <typename T, int N, int W>
+__device__ __forceinline__ void store_run(T* p, const float (&v)[N]) {
+  if constexpr (W == sizeof(T)) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = from_f32<T>(v[k]);
+  } else {
+    constexpr int kWords = N * sizeof(T) / 4;
+    unsigned w[kWords];
+#pragma unroll
+    for (int a = 0; a < kWords; ++a) {
+      if constexpr (sizeof(T) == 4)
+        w[a] = __float_as_uint(v[a]);
+      else  // a packed pair, rounded to nearest even as __float2bfloat16
+        w[a] = (unsigned)__bfloat16_as_ushort(__float2bfloat16(v[2 * a])) |
+               (unsigned)__bfloat16_as_ushort(__float2bfloat16(v[2 * a + 1])) << 16;
+    }
+#pragma unroll
+    for (int a = 0; a < kWords; a += W / 4)
+      store_words<W>(reinterpret_cast<unsigned*>(p) + a, w + a);
+  }
+}
+
+// K2's instantiation <T, NC, PLANES, PX>: PX pixels a thread, PX = 1 the
+// scalar one (element accesses), else the vector one. A thread's run per
+// level is PX elements of each class plane (NCHW) or the PX * NC elements of
+// its pixels' rows; its labels are the PX * NC floats of their rows.
+template <typename T, int NC, bool PLANES, int PX>
+struct BwdAccess {
+  static constexpr int kLevel =
+      PX == 1 ? (int)sizeof(T) : access_bytes(PX * (PLANES ? 1 : NC) * sizeof(T), sizeof(T));
+  static constexpr int kLabel = PX == 1 ? 4 : access_bytes(PX * NC * 4, 4);
+};
+
+// One level's C classes of PX pixels from pixel q of an image, x the image's
+// first element: out[c][k] is class c of pixel q + k.
+template <typename T, int NC, bool PLANES, int PX>
+__device__ __forceinline__ void load_level(const T* x, unsigned q, unsigned hw,
+                                           float (&out)[NC][PX]) {
+  constexpr int W = BwdAccess<T, NC, PLANES, PX>::kLevel;
+  if constexpr (PLANES) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) load_run<T, PX, W>(x + c * hw + q, out[c]);
+  } else {
+    float r[PX * NC];
+    load_run<T, PX * NC, W>(x + q * NC, r);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int k = 0; k < PX; ++k) out[c][k] = r[k * NC + c];
+  }
+}
+
+// The inverse of load_level, narrowing to T.
+template <typename T, int NC, bool PLANES, int PX>
+__device__ __forceinline__ void store_level(T* x, unsigned q, unsigned hw,
+                                            const float (&val)[NC][PX]) {
+  constexpr int W = BwdAccess<T, NC, PLANES, PX>::kLevel;
+  if constexpr (PLANES) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) store_run<T, PX, W>(x + c * hw + q, val[c]);
+  } else {
+    float r[PX * NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int k = 0; k < PX; ++k) r[k * NC + c] = val[c][k];
+    store_run<T, PX * NC, W>(x + q * NC, r);
+  }
+}
+
+// The least blocks per SM ptxas must fit, so that no instantiation spills:
+// the values a thread holds grow with PX * NC (at the main shape, C = 2 and
+// PX = 2, four blocks of 256 fit, more than its grid puts on an SM).
+__host__ __device__ constexpr int bwd_min_blocks(int nc, int px) {
+  return px * nc <= 4 ? 4 : px * nc <= 6 ? 3 : px * nc <= 8 ? 2 : 1;
+}
+
+// blockIdx.y is the image, blockIdx.x the tile of kThreads * PX pixels in it;
+// one thread a group of PX pixels. Offsets inside an image are 32-bit (the
+// wrapper refuses images of 2^31 elements or more); each thread forms the
+// image's 64-bit base once.
+template <typename T, int NC, bool PLANES, int PX>
+__global__ void __launch_bounds__(kThreads, bwd_min_blocks(NC, PX))
 frce_bwd_kernel(const Levels lv, const float* __restrict__ labels, const float* __restrict__ g,
                 int batch) {
+  const unsigned hw = static_cast<unsigned>(lv.hw);
+  const unsigned q = (blockIdx.x * kThreads + threadIdx.x) * PX;
+  if (q >= hw) return;  // H*W is a multiple of PX
+  const long long image = static_cast<long long>(blockIdx.y) * NC * hw;
+
+  float y[PX * NC], v[kMaxLevels][NC][PX];
+  load_run<float, PX * NC, BwdAccess<T, NC, PLANES, PX>::kLabel>(labels + image + q * NC, y);
+#pragma unroll
+  for (int i = 0; i < kMaxLevels; ++i)
+    if (i < lv.levels)
+      load_level<T, NC, PLANES, PX>(static_cast<const T*>(lv.x[i]) + image, q, hw, v[i]);
   float gs[kMaxLevels];
 #pragma unroll
-  for (int i = 0; i < kMaxLevels; ++i) gs[i] = i < lv.levels ? g[i] / (float)batch : 0.f;
+  for (int i = 0; i < kMaxLevels; ++i) gs[i] = i < lv.levels ? __ldg(g + i) / (float)batch : 0.f;
 
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x; p < lv.pixels; p += stride) {
-    float y[NC][1], v[kMaxLevels][NC][1];
-    const long long off = load_group<T, NC, 1>(lv, labels, p, y, v);
-    // v[i][c] <- (g_i / B) * (softmax(acc_i) - y), level i's term
+  // v[i][c][k] <- (g_i / B) * (softmax(acc_i) - y), level i's term; the PX
+  // pixels are independent chains
+#pragma unroll
+  for (int k = 0; k < PX; ++k) {
     float acc[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[c] = 0.f;
@@ -293,7 +458,7 @@ frce_bwd_kernel(const Levels lv, const float* __restrict__ labels, const float* 
         float m = -INFINITY;
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          acc[c] += v[i][c][0];
+          acc[c] += v[i][c][k];
           m = fmaxf(m, acc[c]);
         }
         float e[NC], se = 0.f;
@@ -302,21 +467,26 @@ frce_bwd_kernel(const Levels lv, const float* __restrict__ labels, const float* 
           e[c] = __expf(acc[c] - m);
           se += e[c];
         }
-        const float r = __frcp_rn(se);
+        const float r = __fdividef(1.f, se);  // se in [1, C]
 #pragma unroll
-        for (int c = 0; c < NC; ++c) v[i][c][0] = gs[i] * (e[c] * r - y[c][0]);
+        for (int c = 0; c < NC; ++c) v[i][c][k] = gs[i] * (e[c] * r - y[k * NC + c]);
       }
     }
-    float run[NC];
+  }
+  // grad_j = the ascending cumulative sum of the terms
+  float run[NC][PX];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) run[c] = 0.f;
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int j = 0; j < kMaxLevels; ++j) {
-      if (j < lv.levels) {
+    for (int k = 0; k < PX; ++k) run[c][k] = 0.f;
 #pragma unroll
-        for (int c = 0; c < NC; ++c) run[c] += v[j][c][0];
-        store_pixel<T, NC>(static_cast<T*>(lv.grad[j]), lv.planes, off, p, lv.hw, run);
-      }
+  for (int j = 0; j < kMaxLevels; ++j) {
+    if (j < lv.levels) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int k = 0; k < PX; ++k) run[c][k] += v[j][c][k];
+      store_level<T, NC, PLANES, PX>(static_cast<T*>(lv.grad[j]) + image, q, hw, run);
     }
   }
 }
@@ -330,11 +500,15 @@ struct Fwd {
   }
 };
 
-struct Bwd {  // one instantiation per type and class count: VEC is not used
+struct Bwd {  // VEC = 1 launches the scalar instantiation, else the vector one
   template <typename T, int NC, int VEC>
-  static void run(int blocks, cudaStream_t s, Levels lv, const float* labels, const float* g,
-                  int batch) {
-    frce_bwd_kernel<T, NC><<<blocks, kThreads, 0, s>>>(lv, labels, g, batch);
+  static void run(cudaStream_t s, Levels lv, const float* labels, const float* g, int batch) {
+    constexpr int PX = VEC == 1 ? 1 : kBwdPx;
+    const dim3 grid((unsigned)((lv.hw + kThreads * PX - 1) / (kThreads * PX)), (unsigned)batch);
+    if (lv.planes)
+      frce_bwd_kernel<T, NC, true, PX><<<grid, kThreads, 0, s>>>(lv, labels, g, batch);
+    else
+      frce_bwd_kernel<T, NC, false, PX><<<grid, kThreads, 0, s>>>(lv, labels, g, batch);
   }
 };
 
@@ -376,6 +550,18 @@ bool vector_fits(const Levels& lv, const void* labels, int is_bf16) {
   return ok;
 }
 
+// Whether K2's vector instantiation can take these tensors: H*W a multiple
+// of kBwdPx and every level, gradient and label pointer aligned to its
+// access (BwdAccess, which the offsets inside a plane then keep).
+bool bwd_vector_fits(const Levels& lv, const void* labels, int nclass, int is_bf16) {
+  const int elem = is_bf16 ? 2 : 4;
+  const int width = access_bytes(kBwdPx * (lv.planes ? 1 : nclass) * elem, elem);
+  bool ok = lv.hw % kBwdPx == 0 && aligned(labels, access_bytes(kBwdPx * nclass * 4, 4));
+  for (int i = 0; i < lv.levels; ++i)
+    ok = ok && aligned(lv.x[i], width) && aligned(lv.grad[i], width);
+  return ok;
+}
+
 Levels make_levels(const void* const* x, void* const* grad, int levels, int planes,
                    long long hw, long long pixels) {
   Levels lv{};
@@ -397,6 +583,7 @@ extern "C" {
 int frce_max_levels() { return kMaxLevels; }
 int frce_max_classes() { return kMaxClasses; }
 int frce_vec() { return kVec; }
+int frce_bwd_px() { return kBwdPx; }
 
 // x: `levels` pointers to logits, f32 (is_bf16=0) or bf16, all NCHW
 // (planes=1) or all (B, H, W, C) rows (planes=0); labels (B, H, W, C) f32;
@@ -415,13 +602,17 @@ int frce_forward(const void* const* x, int levels, int planes, const void* label
 }
 
 // g (levels,) f32 cotangent; grad: `levels` pointers to outputs in the
-// logits' dtype and layout. Returns cudaGetLastError().
+// logits' dtype and layout. vec=1 takes the vector instantiation. The grid
+// holds at most kMaxBatch images of fewer than 2^31 elements each. Returns
+// cudaGetLastError().
 int frce_backward(const void* const* x, void* const* grad, int levels, int planes,
                   const void* labels, const void* g, long long hw, long long pixels, int nclass,
-                  int batch, int is_bf16, int num_blocks, void* stream) {
-  if (bad_args(levels, hw, pixels, batch, num_blocks)) return (int)cudaErrorInvalidValue;
+                  int batch, int is_bf16, int vec, void* stream) {
+  if (bad_args(levels, hw, pixels, batch, 1) || batch > kMaxBatch || nclass * hw > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   const Levels lv = make_levels(x, grad, levels, planes, hw, pixels);
-  return dispatch<Bwd>(is_bf16, 0, nclass, num_blocks, static_cast<cudaStream_t>(stream), lv,
+  if (vec && !bwd_vector_fits(lv, labels, nclass, is_bf16)) return (int)cudaErrorMisalignedAddress;
+  return dispatch<Bwd>(is_bf16, vec, nclass, static_cast<cudaStream_t>(stream), lv,
                        static_cast<const float*>(labels), static_cast<const float*>(g), batch);
 }
 

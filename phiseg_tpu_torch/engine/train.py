@@ -27,13 +27,16 @@ from phiseg_tpu_torch.engine.objective import phiseg_objective
 from phiseg_tpu_torch.models.segvae import SegVAE, aggregate_levels
 from phiseg_tpu_torch.nn.layers import init_he_normal_, set_batch_norm_mesh
 from phiseg_tpu_torch.nn.losses import one_hot
+from phiseg_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 
 
-def build_model(cfg: ExperimentConfig, device: Optional[torch.device] = None,
+def build_model(cfg: ExperimentConfig, device: DeviceLike = "cuda",
                 seed: Optional[int] = None) -> SegVAE:
-    """The config's SegVAE. With `seed`, its weights are drawn on the CPU
-    from a generator with that seed (so every device gets the same init)
-    before the move to `device`."""
+    """The config's SegVAE on `device`: the card unless the caller asks for
+    the CPU (without a card, "cuda" raises). With `seed`, its weights are
+    drawn on the CPU from a generator with that seed (so every device gets
+    the same init) before the move."""
+    device = resolve_device(device)
     model = SegVAE(
         model_family=cfg.model_family,
         zdim0=cfg.zdim0,
@@ -48,7 +51,7 @@ def build_model(cfg: ExperimentConfig, device: Optional[torch.device] = None,
     )
     if seed is not None:
         init_he_normal_(model, torch.Generator().manual_seed(seed))
-    return model.to(device) if device is not None else model
+    return model.to(device)
 
 
 def lr_schedule_from_dict(schedule: Mapping[int, float]) -> Callable[[int], float]:
@@ -88,8 +91,10 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(cfg: ExperimentConfig, device: Optional[torch.device] = None,
+def create_train_state(cfg: ExperimentConfig, device: DeviceLike = "cuda",
                        seed: Optional[int] = None) -> TrainState:
+    """The model of `build_model` (on the card unless asked for the CPU,
+    weights from `seed`, else the config's) and its optimiser, at step 0."""
     model = build_model(cfg, device, cfg.seed if seed is None else seed)
     return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()))
 

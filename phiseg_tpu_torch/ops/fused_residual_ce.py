@@ -23,12 +23,14 @@ level of the stacked form, reach them without a copy.
 
 `fused_residual_ce` launches them for CUDA tensors and uses the plain
 version, `residual_ce_plain`, for CPU tensors only: a CUDA tensor gets the
-kernel or an error, never a silent fallback. K1 has a vector instantiation
-(4 pixels a thread, 16-byte loads) and a scalar one for planes or pointers
-the vector loads cannot take; `vector_kernel_fits` chooses. K2 runs one
-pixel a thread on any plane and alignment. The library is built with nvcc
-for sm_90a into `_build/` at the first launch and bound with ctypes, so
-importing this module needs neither nvcc nor a card.
+kernel or an error, never a silent fallback. Each kernel has a vector
+instantiation and a scalar one for planes or pointers the vector accesses
+cannot take: K1's takes 4 pixels a thread with 16-byte loads
+(`vector_kernel_fits` chooses), K2's 2 pixels a thread with accesses of up to
+16 bytes whose width is fixed at compile time (`backward_vector_fits`
+chooses). The library is built with nvcc for sm_90a into `_build/` at the
+first launch and bound with ctypes, so importing this module needs neither
+nvcc nor a card.
 """
 
 from __future__ import annotations
@@ -54,7 +56,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_LEVELS = 8   # kMaxLevels in the source
 MAX_CLASSES = 4  # the NC instantiations in the source
-VEC = 4          # kVec in the source: pixels a thread of the vector kernels
+VEC = 4          # kVec in the source: pixels a thread of K1's vector kernel
+BWD_PX = 2       # kBwdPx in the source: pixels a thread of K2's vector kernel
+MAX_BATCH = 65535         # kMaxBatch in the source: K2's images, on the grid's y
+MAX_IMAGE = 2 ** 31 - 1   # K2's 32-bit offsets inside an image: C*H*W elements at most
 _THREADS = 256   # kThreads in the source
 _BLOCKS_PER_SM = 8
 
@@ -131,23 +136,28 @@ def build() -> Path:
     return out
 
 
+def bind(path: Union[str, Path]) -> ctypes.CDLL:
+    """Load a build of the kernel library and declare its C entry points."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    lib.frce_forward.argtypes = [ptrs, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32, i32, i32,
+                                 i32, ptr]
+    lib.frce_forward.restype = i32
+    lib.frce_backward.argtypes = [ptrs, ptrs, i32, i32, ptr, ptr, i64, i64, i32, i32, i32, i32, ptr]
+    lib.frce_backward.restype = i32
+    for name in ("frce_max_levels", "frce_max_classes", "frce_vec", "frce_bwd_px"):
+        getattr(lib, name).argtypes, getattr(lib, name).restype = [], i32
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            ptrs = ctypes.POINTER(ctypes.c_void_p)
-            lib.frce_forward.argtypes = [ptrs, i32, i32, ptr, ptr, ptr, ptr, i64, i64, i32, i32,
-                                         i32, i32, i32, ptr]
-            lib.frce_forward.restype = i32
-            lib.frce_backward.argtypes = [ptrs, ptrs, i32, i32, ptr, ptr, i64, i64, i32, i32, i32,
-                                          i32, ptr]
-            lib.frce_backward.restype = i32
-            for name in ("frce_max_levels", "frce_max_classes", "frce_vec"):
-                getattr(lib, name).argtypes, getattr(lib, name).restype = [], i32
-            if (lib.frce_max_levels(), lib.frce_max_classes(), lib.frce_vec()) != (
-                    MAX_LEVELS, MAX_CLASSES, VEC):
+            lib = bind(build())
+            if (lib.frce_max_levels(), lib.frce_max_classes(), lib.frce_vec(),
+                    lib.frce_bwd_px()) != (MAX_LEVELS, MAX_CLASSES, VEC, BWD_PX):
                 raise RuntimeError("csrc/fused_residual_ce.cu constants disagree with the wrapper")
             _lib = lib
         return _lib
@@ -196,6 +206,38 @@ def vector_kernel_fits(hw: int, level_ptrs: Sequence[int], itemsize: int, label_
     VEC * itemsize bytes and the labels to 16."""
     width = VEC * itemsize
     return hw % VEC == 0 and label_ptr % 16 == 0 and all(p % width == 0 for p in level_ptrs)
+
+
+def _access_bytes(run: int, elem: int) -> int:
+    """The widest access (16, 8 or 4 bytes) that tiles a run of `run` bytes,
+    else one element an access (access_bytes in the source)."""
+    return next((w for w in (16, 8, 4) if run % w == 0), elem)
+
+
+def backward_vector_fits(hw: int, nclass: int, planes: bool, ptrs: Sequence[int], itemsize: int,
+                         label_ptr: int) -> bool:
+    """Whether K2's vector kernel can take these tensors, else its scalar one
+    runs. A vector thread reads and writes BWD_PX pixels of each level per
+    access run: BWD_PX elements of each class plane, or the BWD_PX * C
+    elements of its pixels' rows; and its labels as the BWD_PX * C floats of
+    their rows. Each run goes in accesses of one width fixed at compile time
+    (`_access_bytes`), so H*W must be a multiple of BWD_PX (every run then
+    starts a multiple of its own size into its tensor) and every level and
+    gradient pointer in `ptrs`, and the labels, aligned to their width."""
+    width = _access_bytes(BWD_PX * (1 if planes else nclass) * itemsize, itemsize)
+    return (hw % BWD_PX == 0 and label_ptr % _access_bytes(BWD_PX * nclass * 4, 4) == 0
+            and all(p % width == 0 for p in ptrs))
+
+
+def check_backward_grid(batch: int, nclass: int, hw: int) -> None:
+    """K2's grid holds the images on its y dimension and addresses each
+    image's C*H*W elements with 32-bit offsets: refuse what it cannot hold."""
+    if batch > MAX_BATCH:
+        raise ValueError(f"batch {batch}: the backward kernel's grid holds at most {MAX_BATCH} "
+                         "images")
+    if nclass * hw > MAX_IMAGE:
+        raise ValueError(f"an image of {nclass} x {hw} elements: the backward kernel takes at "
+                         f"most {MAX_IMAGE} (2^31 - 1) elements an image")
 
 
 def _check(levels: Sequence[torch.Tensor], s_oh: torch.Tensor) -> None:
@@ -275,17 +317,19 @@ def _launch_backward(levels: Sequence[torch.Tensor], s_oh: torch.Tensor,
     g = g.to(device=first.device, dtype=torch.float32).reshape(-1).contiguous()
     if g.numel() != len(levels):
         raise ValueError(f"cotangent has {g.numel()} entries for {len(levels)} levels")
-    lib = _library()
     b, nclass, h, w = first.shape
+    check_backward_grid(b, nclass, h * w)
+    lib = _library()
     planes = _planes(levels)
     shape = (len(levels), b, nclass, h, w) if planes else (len(levels), b, h, w, nclass)
     grads = torch.empty(shape, dtype=first.dtype, device=first.device)
     grads = list((grads if planes else grads.permute(0, 1, 4, 2, 3)).unbind(0))
-    nblocks = _num_blocks(first.device, b * h * w)
+    vec = backward_vector_fits(h * w, nclass, planes, [t.data_ptr() for t in (*levels, *grads)],
+                               first.element_size(), s_oh.data_ptr())
     stream = torch.cuda.current_stream(first.device).cuda_stream
     err = lib.frce_backward(_pointers(levels), _pointers(grads), len(levels), int(planes),
                             s_oh.data_ptr(), g.data_ptr(), h * w, b * h * w, nclass, b,
-                            int(first.dtype == torch.bfloat16), nblocks, stream)
+                            int(first.dtype == torch.bfloat16), int(vec), stream)
     _raise_on(err, "fused_residual_ce backward")
     LAUNCHES["fused_residual_ce_bwd"] += 1
     return grads

@@ -25,7 +25,9 @@ torch.set_num_threads(1)
 def _case(levels, b, hw, c=2, seed=0):
     rng = np.random.RandomState(seed)
     logits = (rng.randn(levels, b, hw, hw, c) * 3.0).astype(np.float32)
-    s_oh = np.eye(c, dtype=np.float32)[(rng.rand(b, hw, hw) > 0.6).astype(np.int64)]
+    # class 0 for 60% of the pixels, the others share the rest
+    labels = np.searchsorted(np.linspace(0.6, 1.0, c)[:-1], rng.rand(b, hw, hw))
+    s_oh = np.eye(c, dtype=np.float32)[labels]
     return logits, s_oh
 
 
@@ -33,12 +35,17 @@ def _as_form(logits, form):
     """The (L,B,H,W,C) tensor `logits` as the kernels' callers hand it over:
     one stacked leaf; L NCHW leaves (B,C,H,W) seen through NHWC views
     ("levels"); or L leaves contiguous in NHWC ("rows"), as the model's
-    channels-last likelihood hands its levels out. Returns (input, leaves)."""
+    channels-last likelihood hands its levels out; "rows+1" the same one
+    element off an aligned address. Returns (input, leaves)."""
     if form == "stacked":
         lg = logits.clone().requires_grad_(True)
         return lg, [lg]
     if form == "rows":
         leaves = [lv.contiguous().requires_grad_(True) for lv in logits]
+        return leaves, leaves
+    if form == "rows+1":
+        leaves = [torch.empty(lv.numel() + 1, dtype=lv.dtype, device=lv.device)[1:].view(lv.shape)
+                  .copy_(lv).requires_grad_(True) for lv in logits]
         return leaves, leaves
     leaves = [lv.permute(0, 3, 1, 2).contiguous().requires_grad_(True) for lv in logits]
     return [t.permute(0, 2, 3, 1) for t in leaves], leaves
@@ -48,7 +55,8 @@ def _leaf_grads_nhwc(leaves, form):
     """The leaves' gradients as one (L,B,H,W,C) tensor."""
     if form == "stacked":
         return leaves[0].grad
-    return torch.stack([t.grad if form == "rows" else t.grad.permute(0, 2, 3, 1) for t in leaves])
+    return torch.stack([t.grad if form.startswith("rows") else t.grad.permute(0, 2, 3, 1)
+                        for t in leaves])
 
 
 @pytest.mark.parametrize("form", ["stacked", "levels", "rows"])
@@ -164,6 +172,44 @@ def test_vector_kernel_choice_follows_plane_size_and_alignment(hw, offsets, item
                                    base + 4096 + label_offset) is vector
 
 
+@pytest.mark.parametrize("hw,nclass,planes,offsets,itemsize,label_offset,vector", [
+    (128 * 128, 2, True, (0, 786432, 1572864), 4, 0, True),  # the main path: f32 planes, 8 B
+    (128 * 128, 2, False, (0, 786432), 4, 0, True),          # f32 rows: 16-byte runs
+    (9 * 9, 2, True, (0, 1024), 4, 0, False),                # H*W odd
+    (10 * 10, 2, True, (0, 1028), 4, 0, False),              # a plane 4 bytes off its 8-byte access
+    (10 * 10, 2, False, (4, 1028), 4, 0, False),             # rows one f32 off (rows+1)
+    (10 * 10, 2, False, (0, 1032), 4, 0, False),             # rows 8 bytes off a 16-byte access
+    (10 * 10, 3, False, (0, 1032), 4, 0, True),              # C=3 rows: 24 B runs, 8 B accesses
+    (10 * 10, 3, False, (0, 1028), 4, 0, False),
+    (10 * 10, 2, True, (0, 1028), 2, 0, True),               # bf16 planes: 4-byte pairs
+    (10 * 10, 2, True, (0, 1026), 2, 0, False),
+    (10 * 10, 3, False, (0, 1036), 2, 0, True),              # bf16 C=3 rows: 12-byte runs
+    (10 * 10, 4, False, (0, 1040), 2, 0, True),              # bf16 C=4 rows: 16-byte runs
+    (10 * 10, 4, False, (0, 1032), 2, 0, False),
+    (10 * 10, 1, True, (0, 1032), 4, 8, True),               # C=1 labels: 8-byte runs
+    (10 * 10, 2, True, (0, 1024), 4, 8, False),              # C=2 labels: 16-byte runs
+])
+def test_backward_kernel_choice_follows_plane_size_alignment_and_classes(
+        hw, nclass, planes, offsets, itemsize, label_offset, vector):
+    base = 1 << 30
+    assert frce.backward_vector_fits(hw, nclass, planes, [base + o for o in offsets], itemsize,
+                                     base + 4096 + label_offset) is vector
+
+
+@pytest.mark.parametrize("batch,nclass,hw,refused", [
+    (12, 2, 128 * 128, None),                                # the main path
+    (frce.MAX_BATCH, 1, 2 ** 31 - 1, None),                  # the largest grid it holds
+    (frce.MAX_BATCH + 1, 2, 128 * 128, "at most 65535 images"),
+    (1, 4, 2 ** 29, r"at most 2147483647 \(2\^31 - 1\) elements an image"),
+])
+def test_backward_grid_refuses_what_it_cannot_address(batch, nclass, hw, refused):
+    if refused is None:
+        frce.check_backward_grid(batch, nclass, hw)
+    else:
+        with pytest.raises(ValueError, match=refused):
+            frce.check_backward_grid(batch, nclass, hw)
+
+
 def test_autograd_function_routes_each_level_and_its_gradient(monkeypatch):
     """The kernels' autograd wiring on the CPU, with the two launches
     replaced by the plain version on the same NCHW levels: each form reaches
@@ -203,17 +249,21 @@ def test_autograd_function_routes_each_level_and_its_gradient(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["stacked", "levels", "rows"])
-@pytest.mark.parametrize("levels,b,hw", [(5, 12, 128), (3, 2, 9)])  # vector and scalar kernels
+@pytest.mark.parametrize("form", ["stacked", "levels", "rows", "rows+1"])
+@pytest.mark.parametrize("levels,b,hw,c", [
+    (5, 12, 128, 2),  # the main path: vector kernels
+    (3, 2, 9, 2),     # H*W odd: scalar kernels
+    (3, 2, 16, 1), (3, 2, 16, 3), (8, 12, 16, 4),
+])
 @pytest.mark.parametrize("dtype,rtol,atol", [("float32", 1e-4, 1e-5), ("bfloat16", 2e-2, 5e-2)])
-def test_cuda_kernels_match_plain_version(dtype, rtol, atol, levels, b, hw, form):
+def test_cuda_kernels_match_plain_version(dtype, rtol, atol, levels, b, hw, c, form):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels are CUDA C++ with no CPU mode")
     dt = getattr(torch, dtype)
-    logits, s_oh = _case(levels, b, hw, seed=1)
+    logits, s_oh = _case(levels, b, hw, c, seed=1)
     lg = torch.from_numpy(logits).cuda().to(dt)
     so = torch.from_numpy(s_oh).cuda()
-    w = torch.tensor([1.0, 2.0, 0.5, 1.0, 3.0][:levels], device="cuda")
+    w = torch.tensor([1.0, 2.0, 0.5, 1.0, 3.0, 1.0, 0.5, 1.0][:levels], device="cuda")
     inp, leaves = _as_form(lg, form)
     out = frce.fused_residual_ce(inp, so)
     (out * w).sum().backward()

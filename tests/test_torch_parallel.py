@@ -66,7 +66,7 @@ def _f64_step(payload, mesh=None):
     from the payload's weights, on the whole batch or on this rank's shard:
     losses, gradients before the optimiser, BN running statistics."""
     cfg = ExperimentConfig(**dict(CFG, compute_dtype="float64"))
-    model = build_model(cfg).double()
+    model = build_model(cfg, device="cpu").double()
     model.load_state_dict(payload["state_dict"])
     state = TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()))
     step = make_train_step(cfg, use_fused_ce=False, mesh=mesh)
@@ -114,7 +114,7 @@ def _rank_work(payload, log_dir):
 
     # one data-parallel train step (K3 path, no augmentation, injected eps)
     cfg = ExperimentConfig(**CFG)
-    model = build_model(cfg)
+    model = build_model(cfg, device="cpu")
     model.load_state_dict(payload["state_dict"])
     state = TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()))
     step, state = shard_train_step(make_train_step(cfg, use_fused_ce=True, mesh=mesh), state, mesh)
@@ -153,7 +153,7 @@ def ref():
     jstep = jax_make_train_step(jmodel, jcfg, tx, use_fused_ce=False, donate=False)
     jstate, jld = jstep(jstate, jnp.asarray(x), jnp.asarray(s), key)
 
-    tmodel = build_model(ExperimentConfig(**CFG))
+    tmodel = build_model(ExperimentConfig(**CFG), device="cpu")
     # Adam's first moment after one step is (1 - b1) * grad
     mu = jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1, jstate.opt_state[0].mu)
     grads = flax_to_state_dict({"params": mu, "batch_stats": variables["batch_stats"]}, tmodel)

@@ -26,7 +26,7 @@ from phiseg_tpu_torch.engine.train import create_train_state, make_train_step
 from phiseg_tpu_torch.experiments import get_experiment
 cfg = get_experiment("phiseg_7_5_synth").replace(
     latent_levels=3, resolution_levels=5, n0=4, image_size=(32, 32, 1), batch_size=2)
-state = create_train_state(cfg)
+state = create_train_state(cfg, device="cpu")
 step = make_train_step(cfg, make_augment_fn(cfg.augmentation_options, cfg.nlabels))
 g = torch.Generator().manual_seed(0)
 losses = step(state, torch.randn(2, 32, 32, 1), torch.randint(0, 2, (2, 32, 32), dtype=torch.uint8), g)

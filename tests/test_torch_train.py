@@ -76,7 +76,7 @@ def runs():
                                                 mutable=["batch_stats"])[0])
 
     tcfg = ExperimentConfig(**CFG)
-    tmodel = build_model(tcfg)
+    tmodel = build_model(tcfg, device="cpu")
     tmodel.load_state_dict(flax_to_state_dict(variables, tmodel))
     tstate = TrainState(model=tmodel, optimizer=make_optimizer(tcfg, tmodel.parameters()))
     tstep = make_train_step(tcfg, use_fused_ce=False)
@@ -270,6 +270,27 @@ def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):
             cli_main([_tiny_cfg(tmp_path), "--num-iter", "1", "--log-dir",
                       str(tmp_path / "log"), *extra])
     assert not (tmp_path / "log").exists()
+
+
+@pytest.mark.parametrize("factory", ["build_model", "create_train_state"])
+def test_model_factories_take_the_card_unless_asked_for_the_cpu(factory, monkeypatch):
+    """With no device named, build_model and create_train_state put the
+    model on the card and raise without one; device="cpu" builds there, with
+    the same seeded weights as a second build."""
+    from phiseg_tpu_torch.engine import train as engine_train
+
+    build = getattr(engine_train, factory)
+    cfg = ExperimentConfig(**CFG)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build(cfg, device="cuda", seed=0)
+    models = [build(cfg, device="cpu", seed=0) for _ in range(2)]
+    models = [m if factory == "build_model" else m.model for m in models]
+    assert all(p.device.type == "cpu" for p in models[0].parameters())
+    a, b = (m.state_dict() for m in models)
+    assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_prefetcher_hands_a_provider_error_to_the_consumer():
