@@ -47,7 +47,31 @@ Phases, each fatal on failure:
      and K3 launched once per step in it;
   7. the 100-sample prior sampler on the model trained in phase 3, for
      B=1 and B=8: ms/image (device time with the host kept ahead, and per
-     call) and the peak device memory.
+     call) and the peak device memory;
+  8. `phiseg_7_5_synth` at full width through the train CLI with validation
+     every 10 steps for 21 steps (two validations over the 32 synthetic val
+     images, 16 samples, 16 ELBO draws), then the same command to 26 steps:
+     train and validation scalars finite, the latest / best_* checkpoints
+     and best_metrics.json written, best_* tags of one step sharing an
+     inode, K1 launched once a step plus 2 + 16 times in each validation
+     (the two eval-loss calls and the ELBO draws), K2 once a step; a Trainer
+     built on the log dir holds the first run's model, Adam state, step and
+     generator bit for bit, and the second run starts at step 21; seconds,
+     peak device memory and GED^2 / S_NCC / Dice / -ELBO of each validation;
+  9. K1 on the validation path in the config's bf16 compute: every K1 call
+     of make_validation_fn over one full batch of 32 val images (the 16
+     ELBO draws) and of one make_eval_loss_fn call at the train batch, on
+     phase 8's model, held level by level against the plain CE of the same
+     card tensors at phase 2's tolerance for the levels' dtype; then make_validation_fn and
+     make_eval_loss_fn on the card (K1) and on the CPU (plain CE), 4 val
+     images, the same injected noise, both f32 with TF32 off: masks equal
+     but at near-ties (pixels that differ printed), Dice, GED^2, S_NCC, the
+     ELBO and the eval loss's per-level CE within VAL_TOL; GED^2 of fixed
+     128x128 masks equal with TF32 on and under bf16 autocast;
+ 10. `test_quantitative` on phase 8's best_ged through its CLI, 100 samples,
+     batch 8, the 32 synthetic test images: the npz contract (keys, shapes,
+     n_samples, n_annotators, finite values), s/image of wall time, device
+     ms/image with the host kept ahead, peak device memory.
 
 Spawned ranks have a join timeout; a rank that fails or hangs fails the run.
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -909,6 +933,366 @@ def phase_sampler(trainer):
     return res
 
 
+VAL_FREQ = 10                   # phase 8: validate at steps 10 and 20 ...
+VAL_ITERS, RESUME_ITERS = 21, 26  # ... of 21 steps, then resume to 26
+VAL_CHECK_BATCH = 4             # phase 9: images of the card-vs-CPU validation
+QUANT_SAMPLES, QUANT_BATCH = 100, 8  # phase 10
+TIE = 1e-3  # phase 9: |p1 - p0| under which card and CPU masks may differ
+# phase 9: card (K1, cuDNN) vs CPU (plain CE, CPU convolutions), both f32
+# with TF32 off: probabilities rel ~1e-6, so masks flip only at near-ties;
+# a flipped pixel moves Dice and GED^2 by ~1/(its mask's foreground count).
+# The ELBO is mostly KL; the per-level CE, K1's output, is held on its own.
+VAL_TOL = {"dice_ged_atol": 2e-3, "sncc_rtol": 1e-3, "elbo_rtol": 1e-4, "ce_rtol": 1e-4}
+
+
+def _validation_k1(cfg, n_images: int) -> int:
+    """K1 launches of one validation: the two eval-loss calls, and one per
+    ELBO draw for each batch of up to 32 validation images."""
+    return 2 + -(-n_images // 32) * cfg.validation_elbo_samples
+
+
+def phase_validate():
+    """Train with validation through the CLI, keep the checkpoints, resume."""
+    import glob
+
+    import torch
+
+    from phiseg_tpu_torch.cli.train import main as train_main
+    from phiseg_tpu_torch.engine import trainer as trainer_mod
+    from phiseg_tpu_torch.engine.checkpoint import CheckpointManager
+    from phiseg_tpu_torch.experiments import get_experiment
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    cfg = get_experiment(EXPERIMENT).replace(validation_frequency=VAL_FREQ,
+                                             tensorboard_update_frequency=1)
+    root = os.path.join(OUT_DIR, "validate")
+    os.makedirs(root)
+    cfg_path, log_dir = os.path.join(root, "config.json"), os.path.join(root, "log")
+    cfg.save(cfg_path)
+    n_images = min(cfg.synth_n_val, int(cfg.num_validation_images))
+    per_val = _validation_k1(cfg, n_images)
+    say(f"validate: {EXPERIMENT} full width, batch {cfg.batch_size}, {cfg.compute_dtype}, "
+        f"validation every {VAL_FREQ} steps over {n_images} images, "
+        f"{cfg.validation_samples} samples, {cfg.validation_elbo_samples} ELBO draws; "
+        f"{VAL_ITERS} steps, then resumed to {RESUME_ITERS}")
+
+    records = []
+    orig = trainer_mod.Trainer.do_validation
+
+    def timed(self, data, step, **kw):  # seconds, peak memory and launches of one validation
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(frce.LAUNCHES)
+        t0 = time.perf_counter()
+        scalars = orig(self, data, step, **kw)
+        torch.cuda.synchronize()
+        records.append({"step": step, "seconds": time.perf_counter() - t0,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "launches": {k: frce.LAUNCHES[k] - before[k] for k in before},
+                        "scalars": scalars})
+        return scalars
+
+    trainer_mod.Trainer.do_validation = timed
+    try:
+        frce.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = train_main([cfg_path, "--log-dir", log_dir, "--num-iter", str(VAL_ITERS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(frce.LAUNCHES)
+    finally:
+        trainer_mod.Trainer.do_validation = orig
+
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    val_recs = [r for r in recs if "validation_GED" in r]
+    if [r["step"] for r in recs if "batch_total_loss" in r] != list(range(VAL_ITERS)):
+        fail(f"metrics.jsonl holds train steps {[r['step'] for r in recs]}")
+    if [r["step"] for r in val_recs] != [VAL_FREQ, 2 * VAL_FREQ]:
+        fail(f"validations at steps {[r['step'] for r in val_recs]}")
+    for r in recs:
+        bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
+        if bad:
+            fail(f"non-finite values at step {r['step']}: {bad}")
+
+    names = sorted(os.path.basename(p) for p in glob.glob(os.path.join(log_dir, "model*.pt")))
+    say(f"validate: checkpoints {names}; best_metrics.json "
+        f"{open(os.path.join(log_dir, 'best_metrics.json')).read()}")
+    for tag in ("latest", "best_dice", "best_loss", "best_ged", "best_ncc"):
+        if not CheckpointManager(log_dir).has_checkpoint(tag):
+            fail(f"no {tag} checkpoint after {VAL_ITERS} steps")
+    if f"model.ckpt-{VAL_ITERS}.pt" not in names:
+        fail("the final state was not saved as latest")
+    by_step = {}
+    for p in glob.glob(os.path.join(log_dir, "model_best_*.pt")):
+        by_step.setdefault(p.rsplit("-", 1)[1], []).append(os.stat(p).st_ino)
+    say(f"validate: best_* files by step -> distinct inodes "
+        f"{ {k: len(set(v)) for k, v in by_step.items()} } of files "
+        f"{ {k: len(v) for k, v in by_step.items()} }")
+    if any(len(set(v)) != 1 for v in by_step.values()) or max(map(len, by_step.values())) < 2:
+        fail("tags saved from one snapshot at one step do not share an inode")
+
+    want_k1 = VAL_ITERS + 2 * per_val
+    say(f"validate: K1 launches {launches['fused_residual_ce_fwd']} = {VAL_ITERS} steps + 2 "
+        f"validations x (2 eval-loss calls + ceil({n_images}/32) x "
+        f"{cfg.validation_elbo_samples} ELBO draws) = {want_k1}; K2 "
+        f"{launches['fused_residual_ce_bwd']} (one a step)")
+    if launches["fused_residual_ce_fwd"] != want_k1 or \
+            launches["fused_residual_ce_bwd"] != VAL_ITERS or launches["fused_residual_ce_dp"]:
+        fail(f"launches {launches}")
+    for r in records:
+        sc = r["scalars"]
+        say(f"validation at step {r['step']}: {r['seconds']:.3f} s, peak device memory "
+            f"{r['peak_gib']:.3f} GiB, K1 {r['launches']['fused_residual_ce_fwd']} K2 "
+            f"{r['launches']['fused_residual_ce_bwd']}; GED^2 {sc['validation_GED']:.6g} "
+            f"S_NCC {sc['validation_NCC']:.6g} Dice {sc['validation_dice_mean_score']:.6g} "
+            f"(fg {sc['validation_dice_lbl_1']:.6g}) -ELBO {sc['validation_neg_elbo']:.6g}")
+        if r["launches"]["fused_residual_ce_fwd"] != per_val or r["launches"]["fused_residual_ce_bwd"]:
+            fail(f"one validation launched {r['launches']}, not K1 x {per_val}")
+    say(f"validate: {VAL_ITERS} steps with 2 validations took {wall:.2f} s of wall time")
+
+    # the resumed state equals the saved one, and the first run's live state,
+    # bit for bit: model (BN statistics included), Adam, step, generator
+    resumed = trainer_mod.Trainer(cfg, log_dir=log_dir)
+    saved, _ = CheckpointManager(log_dir).read("latest")
+    live = {"model": first.state.model.state_dict(), "optimizer": first.state.optimizer.state_dict()}
+    back = {"model": resumed.state.model.state_dict(),
+            "optimizer": resumed.state.optimizer.state_dict()}
+    mismatched = []
+    for name, ref in (("saved", saved), ("live", live)):
+        for k, v in ref["model"].items():
+            if not torch.equal(v.cpu(), back["model"][k].cpu()):
+                mismatched.append((name, "model", k))
+        for i, st in ref["optimizer"]["state"].items():
+            for k, v in st.items():
+                if not torch.equal(v.cpu(), back["optimizer"]["state"][i][k].cpu()):
+                    mismatched.append((name, "adam", i, k))
+    gen_ok = torch.equal(resumed.generator.get_state(), first.generator.get_state()) and \
+        torch.equal(resumed.generator.get_state(), saved["generator"])
+    n_adam = sum(len(st) for st in saved["optimizer"]["state"].values())
+    say(f"resume: {len(saved['model'])} model tensors and {n_adam} Adam tensors; bitwise "
+        f"mismatches vs the file and vs the first run's live state: {len(mismatched)}; step "
+        f"{resumed.state.step} (file {saved['step']}); generator equal: {gen_ok}")
+    if mismatched or not gen_ok or resumed.init_step != VAL_ITERS or saved["step"] != VAL_ITERS:
+        fail(f"the resumed state differs from the saved one: {mismatched[:5]}")
+    del resumed
+
+    frce.reset_launch_counts()
+    second = train_main([cfg_path, "--log-dir", log_dir, "--num-iter", str(RESUME_ITERS)])
+    launches2 = dict(frce.LAUNCHES)
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f][len(recs):]
+    say(f"resume through the CLI: started at step {second.init_step}, logged steps {steps}, "
+        f"ended at {second.state.step}; launches {launches2}")
+    if second.init_step != VAL_ITERS or steps != list(range(VAL_ITERS, RESUME_ITERS)) or \
+            second.state.step != RESUME_ITERS:
+        fail("the second run did not resume at the saved step")
+    n_steps = RESUME_ITERS - VAL_ITERS
+    if launches2["fused_residual_ce_fwd"] != n_steps or launches2["fused_residual_ce_bwd"] != n_steps:
+        fail(f"the resumed run launched {launches2} in {n_steps} steps")
+    return {"log_dir": log_dir, "trainer": second, "launches": launches, "per_val": per_val,
+            "records": records}
+
+
+def _k1_on_the_validation_path(val, data):
+    """Every K1 call of one make_validation_fn over a full batch of val
+    images and of one make_eval_loss_fn call at the train batch, in the
+    config's compute dtype on phase 8's model, against residual_ce_plain of
+    the same card tensors, level by level. Returns the largest relative
+    error."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.engine import objective as objective_mod
+    from phiseg_tpu_torch.engine.train import make_eval_loss_fn
+    from phiseg_tpu_torch.engine.validation import make_validation_fn
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    cfg, model = val["trainer"].cfg, val["trainer"].state.model
+    b = min(32, data.validation.images.shape[0])
+    x = torch.from_numpy(data.validation.images[:b].astype(np.float32)[..., None]).cuda()
+    ann = torch.from_numpy(np.transpose(data.validation.labels[:b], (0, 3, 1, 2)).astype(np.int64))
+    ann = ann.cuda()
+    s_sel = ann[torch.arange(b), torch.arange(b) % ann.shape[1]]
+    calls, real = [], objective_mod.fused_residual_ce
+
+    def record(levels, s_oh):  # the objective's K1 call, its inputs kept
+        out = real(levels, s_oh)
+        calls.append((list(levels), s_oh, out))
+        return out
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    objective_mod.fused_residual_ce = record
+    try:
+        make_validation_fn(model, cfg)(x, ann, s_sel, g)
+        n_elbo = len(calls)
+        make_eval_loss_fn(model, cfg)(x[:cfg.batch_size], s_sel[:cfg.batch_size], g)
+    finally:
+        objective_mod.fused_residual_ce = real
+    if n_elbo != cfg.validation_elbo_samples or len(calls) != n_elbo + 1:
+        fail(f"K1 ran {n_elbo} + {len(calls) - n_elbo} times on the validation path")
+    # the likelihood hands out f32 levels under bf16 compute
+    rtol = min(TOLERANCE[str(t.dtype).split(".")[-1]][0] for levels, _, _ in calls for t in levels)
+    worst, first = 0.0, ([], [])
+    for levels, s_oh, out in calls:
+        ref = frce.residual_ce_plain(levels, s_oh)
+        worst = max(worst, ((out - ref).abs() / ref.abs().clamp_min(1e-30)).max().item())
+        first = first if first[0] else (out.tolist(), ref.tolist())
+    shapes = sorted({(tuple(t.shape), str(t.dtype).split(".")[-1])
+                     for levels, _, _ in calls for t in levels})
+    say(f"K1 on the validation path ({cfg.compute_dtype} compute, eval BN, no autograd): {n_elbo} "
+        f"calls of make_validation_fn at {b} images + {len(calls) - n_elbo} of "
+        f"make_eval_loss_fn at {cfg.batch_size}, levels {shapes}; K1 vs plain CE on the same "
+        f"card tensors, worst per-level rel {worst:.3e} (tol {rtol:g}, phase 2's for the levels' "
+        f"dtype); first ELBO "
+        f"draw K1 {[round(v, 3) for v in first[0]]} plain {[round(v, 3) for v in first[1]]}")
+    if not worst <= rtol:
+        fail("K1 disagrees with the plain CE on the validation path")
+    return worst
+
+
+def phase_metrics(val):
+    """K1 on the validation path against the plain CE; make_validation_fn
+    and make_eval_loss_fn on the card and on the CPU, one batch, the same
+    noise, both in f32; then GED^2's exactness with TF32 and autocast on."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.train import build_model, make_eval_loss_fn, make_sample_fn
+    from phiseg_tpu_torch.engine.validation import make_validation_fn
+    from phiseg_tpu_torch.metrics import ged_terms
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    k1_val_err = _k1_on_the_validation_path(val, get_dataset(val["trainer"].cfg))
+    trained = val["trainer"].state.model.state_dict()
+    cfg = val["trainer"].cfg.replace(compute_dtype="float32")
+    data = get_dataset(cfg)
+    b = VAL_CHECK_BATCH
+    x = torch.from_numpy(data.validation.images[:b].astype(np.float32)[..., None])
+    ann = torch.from_numpy(np.transpose(data.validation.labels[:b], (0, 3, 1, 2)).astype(np.int64))
+    s_sel = ann[torch.arange(b), torch.arange(b) % ann.shape[1]]
+    models = {dev: build_model(cfg, device=dev) for dev in ("cuda", "cpu")}
+    for m in models.values():
+        m.load_state_dict(trained)
+    g = torch.Generator().manual_seed(11)
+    shapes = models["cpu"].latent_shapes(b)
+    eps_s = [torch.randn((cfg.validation_samples, *sh), generator=g) for sh in shapes]
+    eps_e = [torch.randn((cfg.validation_elbo_samples, *sh), generator=g) for sh in shapes]
+    out, probs, ce = {}, {}, {}
+    for dev, m in models.items():
+        t0 = time.perf_counter()
+        before = frce.LAUNCHES["fused_residual_ce_fwd"]
+        on = [t.to(dev) for t in (x, ann, s_sel)]
+        res = make_validation_fn(m, cfg)(*on, eps_samples=[e.to(dev) for e in eps_s],
+                                         eps_elbo=[e.to(dev) for e in eps_e])
+        out[dev] = [t.cpu() for t in res]
+        losses = make_eval_loss_fn(m, cfg)(on[0], on[2], eps=[e[0].to(dev) for e in eps_e])
+        ce[dev] = {k: float(v) for k, v in losses.items() if k.startswith("residual_multinoulli")}
+        probs[dev] = make_sample_fn(m, cfg.validation_samples)(
+            on[0], eps=[e.to(dev) for e in eps_s]).cpu()
+        say(f"metrics on {dev}: {time.perf_counter() - t0:.2f} s incl. a second sampling; K1 "
+            f"launches {frce.LAUNCHES['fused_residual_ce_fwd'] - before}")
+    p_rel = ((probs["cuda"] - probs["cpu"]).abs().max() / probs["cpu"].abs().max()).item()
+    diff = probs["cuda"].argmax(-1) != probs["cpu"].argmax(-1)
+    margin = (probs["cpu"][..., 1] - probs["cpu"][..., 0]).abs()
+    n_diff, worst_margin = int(diff.sum()), float(margin[diff].max()) if diff.any() else 0.0
+    (d_c, g_c, n_c, e_c), (d_p, g_p, n_p, e_p) = out["cuda"], out["cpu"]
+    errs = {"dice": (d_c - d_p).abs().max().item(), "ged": (g_c - g_p).abs().max().item(),
+            "sncc": ((n_c - n_p).abs() / n_p.abs()).max().item(),
+            "elbo": abs(float(e_c) - float(e_p)) / abs(float(e_p)),
+            "ce": max(abs(ce["cuda"][k] - v) / abs(v) for k, v in ce["cpu"].items())}
+    say(f"metrics card vs CPU ({b} val images, {cfg.validation_samples} samples, "
+        f"{cfg.validation_elbo_samples} ELBO draws, f32, TF32 off): probabilities max rel "
+        f"{p_rel:.3e}; mask pixels that differ {n_diff} of {diff.numel()} (largest |p1-p0| among "
+        f"them {worst_margin:.3e}, near-tie below {TIE:g}); Dice max|diff| {errs['dice']:.3e}, "
+        f"GED^2 max|diff| {errs['ged']:.3e} (atol {VAL_TOL['dice_ged_atol']:g}), S_NCC max rel "
+        f"{errs['sncc']:.3e} (rtol {VAL_TOL['sncc_rtol']:g}), ELBO rel {errs['elbo']:.3e} (rtol "
+        f"{VAL_TOL['elbo_rtol']:g}); GED^2 card {g_c.tolist()} cpu {g_p.tolist()}")
+    say(f"eval losses card (K1) vs CPU (plain CE), f32, first ELBO draw's noise: per-level CE "
+        f"max rel {errs['ce']:.3e} (rtol {VAL_TOL['ce_rtol']:g}); card "
+        f"{[round(v, 3) for v in ce['cuda'].values()]} cpu {[round(v, 3) for v in ce['cpu'].values()]}")
+    if worst_margin >= TIE or errs["dice"] > VAL_TOL["dice_ged_atol"] or \
+            errs["ged"] > VAL_TOL["dice_ged_atol"] or errs["sncc"] > VAL_TOL["sncc_rtol"] or \
+            errs["elbo"] > VAL_TOL["elbo_rtol"] or errs["ce"] > VAL_TOL["ce_rtol"]:
+        fail("validation metrics on the card disagree with the CPU's")
+    del models
+
+    # GED^2 on fixed 128x128 masks: exact counts whatever TF32 and autocast say
+    gm = torch.Generator(device="cuda").manual_seed(12)
+    samples = (torch.rand((8, 16, *cfg.image_hw), generator=gm, device="cuda") > 0.3).long()
+    gts = (torch.rand((8, 4, *cfg.image_hw), generator=gm, device="cuda") > 0.3).long()
+    ref = torch.stack(ged_terms(samples, gts, 1, (1,)))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = torch.stack(ged_terms(samples, gts, 1, (1,)))
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            bf16 = torch.stack(ged_terms(samples, gts, 1, (1,)))
+            # the intersections as a plain product would count them
+            a, bb = samples.flatten(-2).float(), gts.flatten(-2).float().transpose(-1, -2)
+            naive_bf16 = torch.matmul(a, bb)
+        naive_tf32 = torch.matmul(a, bb)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    exact = torch.matmul(a.double(), bb.double())
+    say(f"GED^2 on fixed masks (8 images, 16 samples, 4 annotators, 128x128, ~11469 px a mask): "
+        f"TF32 on equal to off: {torch.equal(tf32, ref)}; under bf16 autocast: "
+        f"{torch.equal(bf16, ref)}; a plain product of the masks is off by up to "
+        f"{(naive_tf32.double() - exact).abs().max().item():g} px under TF32 and "
+        f"{(naive_bf16.double() - exact).abs().max().item():g} px under bf16 autocast")
+    if not (torch.equal(tf32, ref) and torch.equal(bf16, ref)):
+        fail("GED^2 depends on TF32 or autocast")
+    return k1_val_err
+
+
+def phase_quantitative(val):
+    """test_quantitative on best_ged through its CLI: the npz contract."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.cli.test_quantitative import main as quant_main
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.loading import load_experiment
+    from phiseg_tpu_torch.engine.validation import make_quant_eval_fn
+
+    log_dir = val["log_dir"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ged, ncc = quant_main([log_dir, "--samples", str(QUANT_SAMPLES), "--batch", str(QUANT_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stem = f"{QUANT_SAMPLES}_best_ged"
+    with np.load(os.path.join(log_dir, f"ged{stem}.npz")) as z:
+        keys, n = sorted(z.keys()), len(z["arr_0"])
+        ok = (keys == ["arr_0", "d_ss", "d_sy", "d_yy", "n_annotators", "n_samples"]
+              and all(z[k].shape == (n,) and np.isfinite(z[k]).all()
+                      for k in ("arr_0", "d_sy", "d_ss", "d_yy"))
+              and int(z["n_samples"]) == QUANT_SAMPLES and int(z["n_annotators"]) == 4
+              and np.allclose(2 * z["d_sy"] - z["d_ss"] - z["d_yy"], z["arr_0"], atol=1e-5))
+    with np.load(os.path.join(log_dir, f"ncc{stem}.npz")) as z:
+        ok = ok and list(z.keys()) == ["arr_0"] and z["arr_0"].shape == (n,) and \
+            np.isfinite(z["arr_0"]).all()
+    say(f"test_quantitative best_ged, {QUANT_SAMPLES} samples, batch {QUANT_BATCH}: {n} test "
+        f"images, keys {keys}; GED^2 {ged.mean():.6g} +- {ged.std():.6g}, S_NCC "
+        f"{ncc.mean():.6g} +- {ncc.std():.6g}; {wall:.2f} s = {wall / n:.4f} s/image of wall "
+        f"time (restore, data and logging included); peak device memory {peak:.3f} GiB")
+    if n != 32 or not ok:
+        fail("test_quantitative's files break the npz contract")
+
+    cfg, model, _, _ = load_experiment(log_dir, "best_ged")
+    data = get_dataset(cfg)
+    x = torch.from_numpy(data.test.images[:QUANT_BATCH].astype(np.float32)[..., None]).cuda()
+    ann = torch.from_numpy(np.transpose(data.test.labels[:QUANT_BATCH], (0, 3, 1, 2))).cuda()
+    quant = make_quant_eval_fn(model, cfg, QUANT_SAMPLES)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dev = device_ms(lambda: quant(x, ann, g), iters=1, warmup=1, sleep_cycles=400_000_000)
+    say(f"test_quantitative device time: {dev:.3f} ms per batch of {QUANT_BATCH} = "
+        f"{dev / QUANT_BATCH:.3f} ms/image (CUDA events, host kept ahead, 1 call)")
+    return {"s_per_image": wall / n, "device_ms_per_image": dev / QUANT_BATCH, "peak_gib": peak}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -918,6 +1302,9 @@ def main() -> None:
     dp_outs, k3_err = phase_dp(cfg)
     phase_mesh1()
     phase_sampler(trainer)
+    val = phase_validate()
+    k1_val_err = phase_metrics(val)
+    phase_quantitative(val)
 
     import torch
 
@@ -932,6 +1319,9 @@ def main() -> None:
              "max_abs_err": errs[k], "ms": t["cold"], "plain_ms": t["plain"],
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
              "ms_l2_warm": t["warm"], "ms_l2_cold_read_flush": t["cold_read"],
+             "launches_validation_path": (val["launches"][f"fused_residual_ce_{k}"]
+                                          - VAL_ITERS),
+             "max_rel_err_validation_path": k1_val_err if k == "fwd" else None,
              "share_of_bound": b_ms / t["cold"], "layout": layout, "variant": t["variant"]})
     # K3 on one rank: K1 over its shard (the all_reduce moves L floats)
     b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels // DP_WORLD, cfg.nlabels, False))

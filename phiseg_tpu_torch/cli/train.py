@@ -6,13 +6,20 @@ Usage:
   python -m phiseg_tpu_torch.cli.train phiseg_7_5_synth --mesh 4   # 4 local cards
   torchrun --nproc-per-node 4 -m phiseg_tpu_torch.cli.train phiseg_7_5_synth --distributed
 
+The trainer validates every `validation_frequency` steps, keeps the
+`latest` and `best_dice` / `best_loss` / `best_ged` / `best_ncc` checkpoints
+and `best_metrics.json` in the log dir, and saves `latest` when it ends. A
+run in a log dir that holds a `latest` checkpoint resumes from its step, up
+to `--num-iter`; `--no-resume` starts from step 0 instead.
+`python -m phiseg_tpu_torch.cli.test_quantitative <log_dir>` then scores
+the `best_ged` checkpoint.
+
 The arguments are the JAX CLI's, plus `--device` (default cuda: without a
 card it raises; pass `--device cpu` to train on the CPU). `--mesh N` starts
 N local ranks, one per card, and trains data-parallel over them (the global
 batch is the config's); `--distributed` joins the process group that
 torchrun's environment describes. The backend is NCCL on cuda and gloo on
-the CPU. `--no-resume` changes nothing yet, since the port has no
-checkpoints to resume from (ROADMAP Queue 1 item 10).
+the CPU.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ def parse_args(argv=None):
                    help="where to train; cuda without a card raises")
     p.add_argument("--mesh", type=int, default=None,
                    help="number of local ranks (one per card) for data-parallel training")
-    p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--no-resume", action="store_true",
+                   help="start from step 0 even if the log dir holds a checkpoint")
     p.add_argument("--dtype", default=None, choices=[None, "float32", "bfloat16"])
     p.add_argument("--distributed", action="store_true",
                    help="join the process group of torchrun's environment "
@@ -57,17 +65,17 @@ def resolve_config(name_or_path: str):
     return get_experiment(name_or_path)
 
 
-def _train(cfg, log_dir, device, mesh=None):
+def _train(cfg, log_dir, device, mesh=None, resume=True):
     from phiseg_tpu_torch.data import get_dataset
     from phiseg_tpu_torch.engine.trainer import Trainer
 
     data = get_dataset(cfg)
-    trainer = Trainer(cfg, log_dir=log_dir, device=device, mesh=mesh)
+    trainer = Trainer(cfg, log_dir=log_dir, device=device, mesh=mesh, resume=resume)
     trainer.train(data)
     return trainer
 
 
-def _train_rank(cfg_json: str, log_dir, device: str, num_devices: int):
+def _train_rank(cfg_json: str, log_dir, device: str, num_devices: int, resume: bool = True):
     """One rank of `--mesh N` (runs in a process of its own): the step it
     reached and its kernels' launch counts over the run."""
     from phiseg_tpu_torch.engine.config import ExperimentConfig
@@ -77,7 +85,8 @@ def _train_rank(cfg_json: str, log_dir, device: str, num_devices: int):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     mesh = make_mesh(num_devices, device=device)
     frce.reset_launch_counts()
-    step = _train(ExperimentConfig.from_json(cfg_json), log_dir, device, mesh).state.step
+    step = _train(ExperimentConfig.from_json(cfg_json), log_dir, device, mesh,
+                  resume).state.step
     return step, dict(frce.LAUNCHES)
 
 
@@ -106,11 +115,12 @@ def main(argv=None, timeout=None):
     from phiseg_tpu_torch import parallel
 
     parallel.resolve_device(args.device)  # cuda without a card raises here
+    resume = not args.no_resume
     if args.distributed:
         parallel.init_distributed_from_env(device=args.device)
         try:
             return _train(cfg, args.log_dir, args.device,
-                          parallel.make_mesh(args.mesh, device=args.device))
+                          parallel.make_mesh(args.mesh, device=args.device), resume)
         finally:
             torch.distributed.destroy_process_group()
     if args.mesh:
@@ -119,9 +129,10 @@ def main(argv=None, timeout=None):
                              f"{torch.cuda.device_count()} available")
         backend = "nccl" if args.device == "cuda" else "gloo"
         return parallel.spawn_ranks(_train_rank, args.mesh,
-                                    (cfg.to_json(), args.log_dir, args.device, args.mesh),
+                                    (cfg.to_json(), args.log_dir, args.device, args.mesh,
+                                     resume),
                                     backend=backend, timeout=timeout)
-    return _train(cfg, args.log_dir, args.device)
+    return _train(cfg, args.log_dir, args.device, resume=resume)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Training engine: config, objective, train step and loop."""
+"""Training engine: config, objective, train step and loop, validation,
+checkpoints, loading and inference."""
 
 from phiseg_tpu_torch.engine.config import ExperimentConfig
 

@@ -1,4 +1,4 @@
-"""Model, optimiser, train-step and sampler factories (port of
+"""Model, optimiser, train-step, eval-loss and sampler factories (port of
 phiseg_tpu/engine/train.py:27-257).
 
 One train step runs: augmentation -> one-hot -> SegVAE forward -> objective
@@ -124,7 +124,7 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
              generator: Optional[torch.Generator] = None,
              eps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         nonlocal sync_bn_model
-        fused = x.is_cuda if use_fused_ce is None else use_fused_ce
+        fused = fused_ce_rule(use_fused_ce, x)
         if augment_fn is not None:
             x, s = augment_fn(x, s, generator)
         s_oh = one_hot(s, cfg.nlabels)
@@ -149,6 +149,32 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
 
     step.mesh = mesh
     return step
+
+
+def fused_ce_rule(use_fused_ce: Optional[bool], x: torch.Tensor) -> bool:
+    """Whether the objective's CE goes through the fused kernels: the
+    flag (`cfg.use_fused_loss_kernel` in the trainer), where None means when
+    x is on a CUDA device."""
+    return x.is_cuda if use_fused_ce is None else use_fused_ce
+
+
+def make_eval_loss_fn(model: SegVAE, cfg: ExperimentConfig):
+    """Batch losses in eval batch-norm mode, without autograd (ref
+    _do_validation :537-549; JAX engine/train.py:197-207): build
+    eval_loss(x, s, generator=None, eps=None) -> loss dict of detached
+    tensors. The CE goes through K1 by `fused_ce_rule` of
+    `cfg.use_fused_loss_kernel`."""
+
+    def eval_loss(x: torch.Tensor, s: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  eps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        s_oh = one_hot(s, cfg.nlabels)
+        with torch.no_grad(), _eval_mode(model):
+            outputs = model(x, s_oh, eps=eps, generator=generator)
+            _, loss_dict = phiseg_objective(outputs, s_oh, cfg, model=model,
+                                            use_fused_ce=fused_ce_rule(cfg.use_fused_loss_kernel, x))
+        return loss_dict
+
+    return eval_loss
 
 
 @contextlib.contextmanager

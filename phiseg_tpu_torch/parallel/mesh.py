@@ -127,6 +127,13 @@ class Mesh:
                 p.grad = flat[offset:offset + n].view_as(p)
                 offset += n
 
+    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place copy of rank 0's `t` to every rank, outside autograd. The
+        other ranks block until rank 0 makes the call."""
+        group = self._live_group()
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        return t
+
     def broadcast_module(self, module: nn.Module) -> None:
         """Copy rank 0's parameters and buffers to every rank."""
         group = self._live_group()

@@ -1,6 +1,7 @@
 """The port runs without jax: in a fresh interpreter where importing jax,
 flax, optax or the JAX package fails, every module of phiseg_tpu_torch
-imports and one CPU train step (with on-device augmentation) runs."""
+imports, and one CPU train step (with on-device augmentation), one
+validation and a checkpoint save and restore run."""
 
 import os
 import subprocess
@@ -31,6 +32,20 @@ step = make_train_step(cfg, make_augment_fn(cfg.augmentation_options, cfg.nlabel
 g = torch.Generator().manual_seed(0)
 losses = step(state, torch.randn(2, 32, 32, 1), torch.randint(0, 2, (2, 32, 32), dtype=torch.uint8), g)
 assert torch.isfinite(losses["total_loss"])
+# one validation (metrics, K1's plain path, the ELBO) and a checkpoint round trip
+import tempfile
+from phiseg_tpu_torch.engine.checkpoint import CheckpointManager, host_snapshot
+from phiseg_tpu_torch.engine.validation import make_validation_fn
+cfg = cfg.replace(validation_samples=3, validation_elbo_samples=2)
+dice, ged, sncc, elbo = make_validation_fn(state.model, cfg)(
+    torch.randn(2, 32, 32, 1), torch.randint(0, 2, (2, 4, 32, 32)), torch.randint(0, 2, (2, 32, 32)), g)
+assert dice.shape == (2, 2) and torch.isfinite(ged).all() and torch.isfinite(elbo)
+with tempfile.TemporaryDirectory() as d:
+    CheckpointManager(d, async_writes=True).save(host_snapshot(state, g), "best_ged")
+    fresh = create_train_state(cfg, device="cpu", seed=1)
+    _, step = CheckpointManager(d).restore(fresh, "best_ged")
+    assert step == 1 and all(torch.equal(a, b) for a, b in
+                             zip(fresh.model.state_dict().values(), state.model.state_dict().values()))
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "optax", "phiseg_tpu")
                 and sys.modules[k] is not None)
 assert not leaked, leaked
@@ -44,7 +59,7 @@ def test_port_imports_and_trains_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK"), proc.stdout
-    assert int(proc.stdout.split()[1]) >= 15  # every module was walked
+    assert int(proc.stdout.split()[1]) >= 25  # every module was walked
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -205,12 +205,6 @@ def test_trainer_two_steps_through_the_cli(tmp_path):
     assert list(log_dir.glob("events.out.tfevents.*"))
 
 
-def test_trainer_raises_at_a_validation_step(tmp_path):
-    with pytest.raises(NotImplementedError, match="validation"):
-        cli_main([_tiny_cfg(tmp_path, validation_frequency=1), "--num-iter", "3",
-                  "--log-dir", str(tmp_path / "log"), "--device", "cpu"])
-
-
 def test_cli_mesh_trains_two_ranks_on_the_cpu(tmp_path):
     """--mesh 2 --device cpu: two gloo ranks split the batch of 4; rank 0
     alone writes the global losses (timeout 120 s for the ranks). On the CPU
