@@ -14,10 +14,15 @@ Phases, each fatal on failure:
      contiguous in NHWC), f32 and bf16, and at edge shapes: the scalar
      instantiations (H*W = 81, misaligned levels), C = 1, 3, 4 and L = 8 in
      both layouts; each line names the instantiations launched; require
-     bitwise-equal reruns and the logits' dtype in the gradient; time kernel
-     vs plain at the main-path shape in both layouts: device time with the
-     host kept ahead, L2-warm and L2-cold (a 128 MB write, or read, between
-     calls, its own time subtracted), and per call by CUDA events;
+     bitwise-equal reruns and the logits' dtype in the gradient; the same at
+     the U-Net families' shape, L=1 (f32 and bf16 levels, f32 rows); time
+     kernel vs plain at the main-path shape (L=5) and at L=1 in both
+     layouts: device time with the host kept ahead, L2-warm and L2-cold (a
+     128 MB write, or read, between calls, its own time subtracted), and per
+     call by CUDA events; at L=1 also F.cross_entropy with probability
+     targets and its autograd backward, the one PyTorch call that computes
+     K1's (K2's) function there, held against the kernels and timed as they
+     are;
   3. train `phiseg_7_5_synth` at full width (R=7, L=5, n0=32, 128x128,
      batch 12, bf16, BN, Adam, on-device augmentation) through
      phiseg_tpu_torch.cli.train.main for NUM_STEPS steps; check every logged
@@ -66,11 +71,24 @@ Phases, each fatal on failure:
      make_eval_loss_fn on the card (K1) and on the CPU (plain CE), 4 val
      images, the same injected noise, both f32 with TF32 off: masks equal
      but at near-ties (pixels that differ printed), Dice, GED^2, S_NCC, the
-     ELBO and the eval loss's per-level CE within VAL_TOL; GED^2 of fixed
-     128x128 masks equal with TF32 on and under bf16 autocast;
+     ELBO and the eval loss's per-level CE within VAL_TOL; the same sample
+     probabilities in f64 on both (model.double()) within F64_GAP; GED^2 of
+     fixed 128x128 masks equal with TF32 on and under bf16 autocast;
  10. `test_quantitative` on phase 8's best_ged through its CLI, 100 samples,
      batch 8, the 32 synthetic test images: the npz contract (keys, shapes,
      n_samples, n_annotators, finite values), s/image of wall time, device
+     ms/image with the host kept ahead, peak device memory;
+ 11. `probunet_synth` and `detunet_synth` at full width (R=7, n0=32,
+     zdim0=6, 128x128, batch 12, bf16, BN, Adam, on-device augmentation;
+     DetUNet on annotator 0 without the KL) through the train CLI, VAL_ITERS
+     steps validating every VAL_FREQ: losses finite with JAX's keys,
+     parameters moved, best_* checkpoints, K1 (at L=1) once a step plus 18
+     times a validation and K2 once a step, the one level read in place,
+     median step time and peak memory; for ProbUNet a kernel step against a
+     plain step as in phase 4, and the sampler as in phase 7;
+ 12. `test_predictions` through its CLI on best_dice of phase 8's PHiSeg log
+     dir and of phase 11's two (100 samples; DetUNet forced to 1): the npz
+     contract ((32, 2), finite, in [0, 1]), s/image of wall time, device
      ms/image with the host kept ahead, peak device memory.
 
 Spawned ranks have a join timeout; a rank that fails or hangs fails the run.
@@ -80,6 +98,7 @@ is {"ok": true, "device": {...}}. Artifacts go to logs/chip_smoke/.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -292,6 +311,69 @@ def _cold_pair(fn, flush, iters: int = 20):
     return (dev[1] + dev[2]) / 2 - (dev[0] + dev[3]) / 2, (dev[0] + dev[3]) / 2
 
 
+def _time_vs(fn, other_fn, flushes):
+    """Device ms of fn(): L2-warm in turns with other_fn (other, fn, fn,
+    other; "other" is the mean of other_fn's two runs), L2-cold after a 128 MB
+    write and after a 128 MB read, and per call with the host's issue."""
+    dev = [device_ms(f) for f in (other_fn, fn, fn, other_fn)]
+    t = {"warm": (dev[1] + dev[2]) / 2, "other": (dev[0] + dev[3]) / 2, "runs": dev}
+    t["cold"], t["flush"] = _cold_pair(fn, flushes["write"])
+    t["cold_read"], t["flush_read"] = _cold_pair(fn, flushes["read"])
+    t["call"], t["call_other"] = cuda_ms(fn), cuda_ms(other_fn)
+    return t
+
+
+def _library_at_l1(flushes):
+    """At L=1 the residual CE is plain cross-entropy, which one PyTorch call
+    computes: F.cross_entropy with probability targets on the NCHW level, and
+    its autograd backward. Held against K1 and K2 on the same tensors (phase
+    2's timed L=1 case, f32 planes), then timed as they are, in turns with
+    them."""
+    import torch
+    import torch.nn.functional as F
+
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    logits, s_oh = _case(1, 12, 128, 2, torch.float32, seed=0)
+    levels = _as_form(logits, "levels")
+    b = logits.shape[1]
+    x = levels[0].permute(0, 3, 1, 2)  # the NCHW tensor under the NHWC view
+    target = s_oh.permute(0, 3, 1, 2).contiguous()
+    leaf = x.detach().clone().requires_grad_(True)
+    loss = F.cross_entropy(leaf, target, reduction="sum") / b
+    (grad,) = torch.autograd.grad(loss, leaf, retain_graph=True)
+    w = torch.ones(1, device="cuda")
+    k1 = frce.fused_residual_ce_forward(levels, s_oh)
+    k2 = frce.fused_residual_ce_backward(levels, s_oh, w)[0]
+    fwd_rel = abs(loss.item() - k1[0].item()) / abs(k1[0].item())
+    grad_abs = (grad.permute(0, 2, 3, 1) - k2).abs().max().item()
+    rtol, atol = TOLERANCE["float32"]
+    say(f"library at L1 B12 128x128 C2 f32 planes: F.cross_entropy(level_nchw, s_oh_nchw, "
+        f"reduction='sum') / B vs K1 rel {fwd_rel:.3e} (tol {rtol:g}); its autograd gradient vs "
+        f"K2 abs {grad_abs:.3e} (tol {atol:g})")
+    if not (fwd_rel <= rtol and grad_abs <= atol):
+        fail("F.cross_entropy and the kernels compute different functions at L=1")
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.cross_entropy(x, target, reduction="sum") / b
+
+    fns = {"fwd": ("F.cross_entropy", lib_fwd,
+                   lambda: frce.fused_residual_ce_forward(levels, s_oh)),
+           "bwd": ("its autograd backward, graph retained",
+                   lambda: torch.autograd.grad(loss, leaf, retain_graph=True),
+                   lambda: frce.fused_residual_ce_backward(levels, s_oh, w))}
+    out = {}
+    for k, (what, lib_fn, kernel_fn) in fns.items():
+        t = out["library", k] = _time_vs(lib_fn, kernel_fn, flushes)
+        say(f"time library {k} at L1 B12 128x128 C2 f32 ({what}): "
+            f"device {t['cold']:.4f} ms L2-cold (write flush), {t['cold_read']:.4f} ms (read "
+            f"flush), {t['warm']:.4f} ms L2-warm vs the kernel's {t['other']:.4f} ms in turns "
+            f"(runs {', '.join(f'{d:.4f}' for d in t['runs'])}); per call incl. host issue "
+            f"{t['call']:.4f} ms vs the kernel's {t['call_other']:.4f} ms")
+    return out
+
+
 def phase_kernels():
     import torch
 
@@ -322,6 +404,10 @@ def phase_kernels():
         ("L8 levels", 8, 2, 16, 2, torch.float32, [1.0, 2.0, 0.5, 1.5, 0.25, 3.0, 1.0, 2.0],
          "levels"),
         ("L8 C4 bf16 rows", 8, 12, 16, 4, torch.bfloat16, None, "rows"),
+        # the U-Net families' shape: one level (phase 11)
+        ("L1 main f32 levels", 1, 12, 128, 2, torch.float32, None, "levels"),
+        ("L1 main bf16 levels", 1, 12, 128, 2, torch.bfloat16, None, "levels"),
+        ("L1 main f32 rows", 1, 12, 128, 2, torch.float32, None, "rows"),
     ]
     errs = {}
     for i, (name, levels, b, hw, nclass, dtype, w, form) in enumerate(cases):
@@ -356,46 +442,47 @@ def phase_kernels():
         if name == "main f32":
             errs = {"fwd": fwd_abs, "bwd": grad_abs}
 
-    logits, s_oh = _case(5, 12, 128, 2, torch.float32, seed=0)
-    w = torch.ones(5, device="cuda")
-    ref_in = logits.clone().requires_grad_(True)
-    ref = frce.residual_ce_plain(ref_in, s_oh)
     scratch = torch.empty(32 * 2 ** 20, device="cuda")  # 128 MiB, over twice the 50 MB L2
     flushes = {"write": lambda: scratch.fill_(1.0), "read": lambda: scratch.sum()}
+    # (kernel, layout, levels) -> {"warm", "cold", "cold_read", "flush", "plain", ...};
+    # ("library", fwd | bwd) -> the same for F.cross_entropy at L=1; "floor"
+    times = {}
+    for levels in (5, 1):
+        logits, s_oh = _case(levels, 12, 128, 2, torch.float32, seed=0)
+        w = torch.ones(levels, device="cuda")
+        ref_in = logits.clone().requires_grad_(True)
+        ref = frce.residual_ce_plain(ref_in, s_oh)
 
-    def plain_fwd():
-        with torch.no_grad():
-            frce.residual_ce_plain(logits, s_oh)
+        def plain_fwd():
+            with torch.no_grad():
+                frce.residual_ce_plain(logits, s_oh)
 
-    read = (logits.numel() + s_oh.numel()) * 4
-    moved = {"fwd": read, "bwd": read + logits.numel() * 4}  # bytes the kernel must move
-    times = {}  # (kernel, layout) -> {"warm", "cold", "cold_read", "flush", "plain", ...}; "floor"
-    for layout, form in (("rows", "rows"), ("planes", "levels")):
-        inp = _as_form(logits, form)
-        fns = {
-            "fwd": (lambda: frce.fused_residual_ce_forward(inp, s_oh), plain_fwd),
-            "bwd": (lambda: frce.fused_residual_ce_backward(inp, s_oh, w),
-                    lambda: torch.autograd.grad(ref, ref_in, grad_outputs=w, retain_graph=True)),
-        }
-        for k, (kernel_fn, plain_fn) in fns.items():
-            # plain, kernel, kernel, plain: the mean of each pair
-            dev = [device_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn)]
-            t = {"warm": (dev[1] + dev[2]) / 2, "plain": (dev[0] + dev[3]) / 2}
-            t["cold"], t["flush"] = _cold_pair(kernel_fn, flushes["write"])
-            t["cold_read"], t["flush_read"] = _cold_pair(kernel_fn, flushes["read"])
-            t["call"], t["call_plain"] = cuda_ms(kernel_fn), cuda_ms(plain_fn)
-            t["variant"] = _variant(inp, s_oh)
-            times[k, layout] = t
-            say(f"time {k} at L5 B12 128x128 C2 f32, {layout} ({t['variant']}): device "
-                f"{t['cold']:.4f} ms L2-cold (a 128 MB write between calls, its "
-                f"{t['flush']:.4f} ms subtracted), {t['cold_read']:.4f} ms L2-cold by a 128 MB "
-                f"read ({t['flush_read']:.4f} ms subtracted), {t['warm']:.4f} ms L2-warm vs "
-                f"{t['plain']:.4f} ms plain (CUDA events, host kept ahead; warm runs "
-                f"{', '.join(f'{d:.4f}' for d in dev)}); per call incl. host issue "
-                f"{t['call']:.4f} ms kernel vs {t['call_plain']:.4f} ms plain (CUDA events, "
-                f"median of 50); kernel moves {moved[k] / 1e6:.2f} MB: "
-                f"{moved[k] / t['cold'] / 1e9:.3f} TB/s cold = "
-                f"{moved[k] / t['cold'] / 1e9 / 3.35:.1%} of the H100's 3.35 TB/s")
+        read = (logits.numel() + s_oh.numel()) * 4
+        moved = {"fwd": read, "bwd": read + logits.numel() * 4}  # bytes the kernel must move
+        for layout, form in (("rows", "rows"), ("planes", "levels")):
+            inp = _as_form(logits, form)
+            fns = {
+                "fwd": (lambda: frce.fused_residual_ce_forward(inp, s_oh), plain_fwd),
+                "bwd": (lambda: frce.fused_residual_ce_backward(inp, s_oh, w),
+                        lambda: torch.autograd.grad(ref, ref_in, grad_outputs=w,
+                                                    retain_graph=True)),
+            }
+            for k, (kernel_fn, plain_fn) in fns.items():
+                t = _time_vs(kernel_fn, plain_fn, flushes)
+                t["plain"], t["call_plain"] = t["other"], t["call_other"]
+                t["variant"] = _variant(inp, s_oh)
+                times[k, layout, levels] = t
+                say(f"time {k} at L{levels} B12 128x128 C2 f32, {layout} ({t['variant']}): device "
+                    f"{t['cold']:.4f} ms L2-cold (a 128 MB write between calls, its "
+                    f"{t['flush']:.4f} ms subtracted), {t['cold_read']:.4f} ms L2-cold by a 128 MB "
+                    f"read ({t['flush_read']:.4f} ms subtracted), {t['warm']:.4f} ms L2-warm vs "
+                    f"{t['plain']:.4f} ms plain (CUDA events, host kept ahead; warm runs "
+                    f"{', '.join(f'{d:.4f}' for d in t['runs'])}); per call incl. host issue "
+                    f"{t['call']:.4f} ms kernel vs {t['call_plain']:.4f} ms plain (CUDA events, "
+                    f"median of 50); kernel moves {moved[k] / 1e6:.2f} MB: "
+                    f"{moved[k] / t['cold'] / 1e9:.3f} TB/s cold = "
+                    f"{moved[k] / t['cold'] / 1e9 / 3.35:.1%} of the H100's 3.35 TB/s")
+    times.update(_library_at_l1(flushes))
     del scratch
     one = torch.zeros(1, device="cuda")
     times["floor"] = device_ms(lambda: one.add_(1.0), iters=20)
@@ -477,21 +564,36 @@ def phase_in_context(cfg):
     import torch
 
     from phiseg_tpu_torch.data import get_dataset
-    from phiseg_tpu_torch.data.augment_device import make_augment_fn
-    from phiseg_tpu_torch.engine.train import create_train_state, make_train_step
+    from phiseg_tpu_torch.engine.train import create_train_state
 
     device = torch.device("cuda")
     data = get_dataset(cfg)
     x, s = data.train.next_batch(cfg.batch_size)
     x = torch.from_numpy(x).to(device)
     s = torch.from_numpy(s.astype("uint8")).to(device)
+    init = _kernel_vs_plain_step(cfg, x, s, head="likelihood.out")
+    model = create_train_state(cfg, device).model
+    model.load_state_dict(init)
+    return _ce_in_context(cfg, model, x, s)
+
+
+def _kernel_vs_plain_step(cfg, x, s, head: str):
+    """One full-width step with the fused kernels and two with the plain
+    version, from one saved state, one noise draw and one augmentation draw:
+    the loss dicts and the gradients agree (the parameters named `head...`,
+    the likelihood's output convolutions, tightly). Returns the state."""
+    import torch
+
+    from phiseg_tpu_torch.data.augment_device import make_augment_fn
+    from phiseg_tpu_torch.engine.train import create_train_state, make_train_step
+
+    device = x.device
     g = torch.Generator(device=device).manual_seed(7)
-    h, w = cfg.image_hw
-    R, L = cfg.resolution_levels, cfg.latent_levels
-    eps = [torch.randn(cfg.batch_size, h // 2 ** (i + R - L), w // 2 ** (i + R - L), cfg.zdim0,
-                       device=device, generator=g, dtype=cfg.dtype) for i in range(L)]
+    model = create_train_state(cfg, device).model
+    eps = [torch.randn(shape, device=device, generator=g, dtype=cfg.dtype)
+           for shape in model.latent_shapes(cfg.batch_size)]
     augment_fn = make_augment_fn(cfg.augmentation_options, cfg.nlabels)
-    init = create_train_state(cfg, device).model.state_dict()
+    init = model.state_dict()
     runs = {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -505,8 +607,8 @@ def phase_in_context(cfg):
     finally:
         torch.backends.cudnn.deterministic = False
     (ld_k, gr_k), (ld_p, gr_p), (_, gr_p2) = runs["kernel"], runs["plain"], runs["plain again"]
-    say(f"in context, kernel: {json.dumps(ld_k, sort_keys=True)}")
-    say(f"in context, plain:  {json.dumps(ld_p, sort_keys=True)}")
+    say(f"{cfg.experiment_name} step, kernel: {json.dumps(ld_k, sort_keys=True)}")
+    say(f"{cfg.experiment_name} step, plain:  {json.dumps(ld_p, sort_keys=True)}")
     worst = max(abs(ld_k[k] - ld_p[k]) / abs(ld_p[k]) for k in ld_p)
 
     # The likelihood's output convolutions take K2's gradient first, before
@@ -514,21 +616,20 @@ def phase_in_context(cfg):
     # kernels' f32 round-off flips a bf16 rounding. Further back, the bf16
     # atomics of the bilinear upsampling's backward make even two plain
     # steps differ, so there the kernel step is held to that spread.
-    head = [n for n in gr_p if n.startswith("likelihood.out")]
-    gr_p_head = {n: gr_p[n] for n in head}
+    gr_p_head = {n: gr_p[n] for n in gr_p if n.startswith(head)}
     head_rel, head_noise = _rel_l2(gr_k, gr_p_head), _rel_l2(gr_p2, gr_p_head)
     all_rel, all_noise = _rel_l2(gr_k, gr_p), _rel_l2(gr_p2, gr_p)
-    say(f"in context (augmentation on): worst loss relative difference {worst:.3e} (tol 1e-4)")
-    say(f"in context gradients, relative L2, kernel vs plain (plain vs plain): output convs "
+    say(f"{cfg.experiment_name} step (augmentation on): worst loss relative difference "
+        f"{worst:.3e} (tol 1e-4)")
+    say(f"{cfg.experiment_name} step gradients, relative L2, kernel vs plain (plain vs plain): "
+        f"output convs ({head}*) "
         f"{head_rel:.3e} ({head_noise:.3e}), tol 1e-3; all parameters {all_rel:.3e} "
         f"({all_noise:.3e}), tol 3x plain vs plain + 1e-3")
     if set(ld_k) != set(ld_p) or not worst <= 1e-4:
         fail("the step with the kernels disagrees with the step with the plain version")
-    if not (head_rel <= 1e-3 and all_rel <= 3 * all_noise + 1e-3):
+    if not gr_p_head or not (head_rel <= 1e-3 and all_rel <= 3 * all_noise + 1e-3):
         fail("the step's gradients with the kernels disagree with those with the plain version")
-    model = create_train_state(cfg, device).model
-    model.load_state_dict(init)
-    return _ce_in_context(cfg, model, x, s)
+    return init
 
 
 def _ce_in_context(cfg, model, x, s):
@@ -898,7 +999,9 @@ def phase_mesh1():
             fail(f"--mesh 1: {k} launched {launches[0].get(k)} times in 3 steps")
 
 
-def phase_sampler(trainer):
+def phase_sampler(trainer, what: str):
+    """The SAMPLES-sample prior sampler on the trained model at B=1 and B=8:
+    ms/image of device time and per call, and the peak device memory."""
     import torch
 
     from phiseg_tpu_torch.data import get_dataset
@@ -925,8 +1028,9 @@ def phase_sampler(trainer):
         dev = device_ms(lambda: sample(x, g), iters=1, warmup=2)
         call = cuda_ms(lambda: sample(x, g), iters=5, warmup=1)
         res[b] = (dev, call, peak)
-        say(f"sampler {SAMPLES} samples B={b} {cfg.compute_dtype} (R={cfg.resolution_levels} "
-            f"L={cfg.latent_levels} n0={cfg.n0} {cfg.image_hw}, trained in phase 3): device "
+        say(f"sampler {SAMPLES} samples B={b} {cfg.compute_dtype} ({cfg.experiment_name}: "
+            f"R={cfg.resolution_levels} L={cfg.effective_latent_levels} n0={cfg.n0} "
+            f"{cfg.image_hw}, {what}): device "
             f"{dev:.3f} ms/call = {dev / b:.3f} ms/image (CUDA events, host kept ahead, 1 call); "
             f"per call incl. host issue {call:.3f} ms = {call / b:.3f} ms/image (median of 5); "
             f"peak device memory {peak:.3f} GiB")
@@ -936,19 +1040,102 @@ def phase_sampler(trainer):
 VAL_FREQ = 10                   # phase 8: validate at steps 10 and 20 ...
 VAL_ITERS, RESUME_ITERS = 21, 26  # ... of 21 steps, then resume to 26
 VAL_CHECK_BATCH = 4             # phase 9: images of the card-vs-CPU validation
-QUANT_SAMPLES, QUANT_BATCH = 100, 8  # phase 10
+QUANT_SAMPLES, QUANT_BATCH = 100, 8  # phase 10 (and 12's batch)
+FAMILY_EXPERIMENTS = ("probunet_synth", "detunet_synth")  # phase 11
 TIE = 1e-3  # phase 9: |p1 - p0| under which card and CPU masks may differ
 # phase 9: card (K1, cuDNN) vs CPU (plain CE, CPU convolutions), both f32
 # with TF32 off: probabilities rel ~1e-6, so masks flip only at near-ties;
 # a flipped pixel moves Dice and GED^2 by ~1/(its mask's foreground count).
 # The ELBO is mostly KL; the per-level CE, K1's output, is held on its own.
 VAL_TOL = {"dice_ged_atol": 2e-3, "sncc_rtol": 1e-3, "elbo_rtol": 1e-4, "ce_rtol": 1e-4}
+# phase 9: card vs CPU sample probabilities in f64; f64 round-off (1.1e-16)
+# amplified as far as the f32 gap shows f32's is (~1e4), with room to spare
+F64_GAP = 1e-8
 
 
 def _validation_k1(cfg, n_images: int) -> int:
     """K1 launches of one validation: the two eval-loss calls, and one per
     ELBO draw for each batch of up to 32 validation images."""
     return 2 + -(-n_images // 32) * cfg.validation_elbo_samples
+
+
+def _train_with_validations(cfg_path: str, log_dir: str, nan_ok=()):
+    """VAL_ITERS steps through the train CLI, validating every VAL_FREQ:
+    the seconds, peak device memory and kernel launches of each validation,
+    and the peak of the steps before it, recorded; the steps, validations,
+    finite values (but the keys in nan_ok) and the best_* checkpoints of
+    every metric that was finite once checked. Returns (trainer, launches,
+    validation records, wall seconds, metrics.jsonl records)."""
+    import torch
+
+    from phiseg_tpu_torch.cli.train import main as train_main
+    from phiseg_tpu_torch.engine import trainer as trainer_mod
+    from phiseg_tpu_torch.engine.checkpoint import CheckpointManager
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    records = []
+    orig = trainer_mod.Trainer.do_validation
+
+    def timed(self, data, step, **kw):  # seconds, peak memory and launches of one validation
+        torch.cuda.synchronize()
+        steps_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(frce.LAUNCHES)
+        t0 = time.perf_counter()
+        scalars = orig(self, data, step, **kw)
+        torch.cuda.synchronize()
+        records.append({"step": step, "seconds": time.perf_counter() - t0,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "steps_peak_gib": steps_peak,
+                        "launches": {k: frce.LAUNCHES[k] - before[k] for k in before},
+                        "scalars": scalars})
+        torch.cuda.reset_peak_memory_stats()  # the next record's steps_peak_gib: steps only
+        return scalars
+
+    trainer_mod.Trainer.do_validation = timed
+    try:
+        frce.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_main([cfg_path, "--log-dir", log_dir, "--num-iter", str(VAL_ITERS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(frce.LAUNCHES)
+    finally:
+        trainer_mod.Trainer.do_validation = orig
+
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    val_recs = [r for r in recs if "validation_GED" in r]
+    if [r["step"] for r in recs if "batch_total_loss" in r] != list(range(VAL_ITERS)):
+        fail(f"metrics.jsonl holds train steps {[r['step'] for r in recs]}")
+    if [r["step"] for r in val_recs] != [VAL_FREQ, 2 * VAL_FREQ]:
+        fail(f"validations at steps {[r['step'] for r in val_recs]}")
+    for r in recs:
+        bad = [k for k, v in r.items()
+               if isinstance(v, float) and not math.isfinite(v) and k not in nan_ok]
+        if bad:
+            fail(f"non-finite values at step {r['step']}: {bad}")
+    metric = {"dice": "validation_dice_mean_score", "loss": "validation_neg_elbo",
+              "ged": "validation_GED", "ncc": "validation_NCC"}
+    for tag in ["latest"] + [f"best_{m}" for m, k in metric.items()
+                             if any(math.isfinite(r[k]) for r in val_recs)]:
+        if not CheckpointManager(log_dir).has_checkpoint(tag):
+            fail(f"no {tag} checkpoint in {log_dir} after {VAL_ITERS} steps")
+    return trainer, launches, records, wall, recs
+
+
+def _say_validations(records, per_val: int, what: str = "") -> None:
+    """Print each validation's time, memory, launches and scalars; K1 must
+    have launched per_val times in each, K2 not at all."""
+    for r in records:
+        sc = r["scalars"]
+        say(f"{what}validation at step {r['step']}: {r['seconds']:.3f} s, peak device memory "
+            f"{r['peak_gib']:.3f} GiB, K1 {r['launches']['fused_residual_ce_fwd']} K2 "
+            f"{r['launches']['fused_residual_ce_bwd']}; GED^2 {sc['validation_GED']:.6g} "
+            f"S_NCC {sc['validation_NCC']:.6g} Dice {sc['validation_dice_mean_score']:.6g} "
+            f"(fg {sc['validation_dice_lbl_1']:.6g}) -ELBO {sc['validation_neg_elbo']:.6g}")
+        if r["launches"]["fused_residual_ce_fwd"] != per_val or r["launches"]["fused_residual_ce_bwd"]:
+            fail(f"one validation launched {r['launches']}, not K1 x {per_val}")
 
 
 def phase_validate():
@@ -976,51 +1163,10 @@ def phase_validate():
         f"{cfg.validation_samples} samples, {cfg.validation_elbo_samples} ELBO draws; "
         f"{VAL_ITERS} steps, then resumed to {RESUME_ITERS}")
 
-    records = []
-    orig = trainer_mod.Trainer.do_validation
-
-    def timed(self, data, step, **kw):  # seconds, peak memory and launches of one validation
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = dict(frce.LAUNCHES)
-        t0 = time.perf_counter()
-        scalars = orig(self, data, step, **kw)
-        torch.cuda.synchronize()
-        records.append({"step": step, "seconds": time.perf_counter() - t0,
-                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                        "launches": {k: frce.LAUNCHES[k] - before[k] for k in before},
-                        "scalars": scalars})
-        return scalars
-
-    trainer_mod.Trainer.do_validation = timed
-    try:
-        frce.reset_launch_counts()
-        t0 = time.perf_counter()
-        first = train_main([cfg_path, "--log-dir", log_dir, "--num-iter", str(VAL_ITERS)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(frce.LAUNCHES)
-    finally:
-        trainer_mod.Trainer.do_validation = orig
-
-    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
-    val_recs = [r for r in recs if "validation_GED" in r]
-    if [r["step"] for r in recs if "batch_total_loss" in r] != list(range(VAL_ITERS)):
-        fail(f"metrics.jsonl holds train steps {[r['step'] for r in recs]}")
-    if [r["step"] for r in val_recs] != [VAL_FREQ, 2 * VAL_FREQ]:
-        fail(f"validations at steps {[r['step'] for r in val_recs]}")
-    for r in recs:
-        bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
-        if bad:
-            fail(f"non-finite values at step {r['step']}: {bad}")
-
+    first, launches, records, wall, recs = _train_with_validations(cfg_path, log_dir)
     names = sorted(os.path.basename(p) for p in glob.glob(os.path.join(log_dir, "model*.pt")))
     say(f"validate: checkpoints {names}; best_metrics.json "
         f"{open(os.path.join(log_dir, 'best_metrics.json')).read()}")
-    for tag in ("latest", "best_dice", "best_loss", "best_ged", "best_ncc"):
-        if not CheckpointManager(log_dir).has_checkpoint(tag):
-            fail(f"no {tag} checkpoint after {VAL_ITERS} steps")
     if f"model.ckpt-{VAL_ITERS}.pt" not in names:
         fail("the final state was not saved as latest")
     by_step = {}
@@ -1040,15 +1186,7 @@ def phase_validate():
     if launches["fused_residual_ce_fwd"] != want_k1 or \
             launches["fused_residual_ce_bwd"] != VAL_ITERS or launches["fused_residual_ce_dp"]:
         fail(f"launches {launches}")
-    for r in records:
-        sc = r["scalars"]
-        say(f"validation at step {r['step']}: {r['seconds']:.3f} s, peak device memory "
-            f"{r['peak_gib']:.3f} GiB, K1 {r['launches']['fused_residual_ce_fwd']} K2 "
-            f"{r['launches']['fused_residual_ce_bwd']}; GED^2 {sc['validation_GED']:.6g} "
-            f"S_NCC {sc['validation_NCC']:.6g} Dice {sc['validation_dice_mean_score']:.6g} "
-            f"(fg {sc['validation_dice_lbl_1']:.6g}) -ELBO {sc['validation_neg_elbo']:.6g}")
-        if r["launches"]["fused_residual_ce_fwd"] != per_val or r["launches"]["fused_residual_ce_bwd"]:
-            fail(f"one validation launched {r['launches']}, not K1 x {per_val}")
+    _say_validations(records, per_val)
     say(f"validate: {VAL_ITERS} steps with 2 validations took {wall:.2f} s of wall time")
 
     # the resumed state equals the saved one, and the first run's live state,
@@ -1094,13 +1232,24 @@ def phase_validate():
             "records": records}
 
 
-def _k1_on_the_validation_path(val, data):
+def _val_images(data, b: int):
+    """The first b validation images (B,H,W,1) f32, their annotations
+    (B,M,H,W) int64 and one annotation each, cycling over the annotators,
+    on the CPU."""
+    import numpy as np
+    import torch
+
+    x = torch.from_numpy(data.validation.images[:b].astype(np.float32)[..., None])
+    ann = torch.from_numpy(np.transpose(data.validation.labels[:b], (0, 3, 1, 2)).astype(np.int64))
+    return x, ann, ann[torch.arange(b), torch.arange(b) % ann.shape[1]]
+
+
+def _k1_on_the_validation_path(cfg, model, data):
     """Every K1 call of one make_validation_fn over a full batch of val
     images and of one make_eval_loss_fn call at the train batch, in the
-    config's compute dtype on phase 8's model, against residual_ce_plain of
+    config's compute dtype on a trained model, against residual_ce_plain of
     the same card tensors, level by level. Returns the largest relative
     error."""
-    import numpy as np
     import torch
 
     from phiseg_tpu_torch.engine import objective as objective_mod
@@ -1108,12 +1257,8 @@ def _k1_on_the_validation_path(val, data):
     from phiseg_tpu_torch.engine.validation import make_validation_fn
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
 
-    cfg, model = val["trainer"].cfg, val["trainer"].state.model
     b = min(32, data.validation.images.shape[0])
-    x = torch.from_numpy(data.validation.images[:b].astype(np.float32)[..., None]).cuda()
-    ann = torch.from_numpy(np.transpose(data.validation.labels[:b], (0, 3, 1, 2)).astype(np.int64))
-    ann = ann.cuda()
-    s_sel = ann[torch.arange(b), torch.arange(b) % ann.shape[1]]
+    x, ann, s_sel = (t.cuda() for t in _val_images(data, b))
     calls, real = [], objective_mod.fused_residual_ce
 
     def record(levels, s_oh):  # the objective's K1 call, its inputs kept
@@ -1140,38 +1285,41 @@ def _k1_on_the_validation_path(val, data):
         first = first if first[0] else (out.tolist(), ref.tolist())
     shapes = sorted({(tuple(t.shape), str(t.dtype).split(".")[-1])
                      for levels, _, _ in calls for t in levels})
-    say(f"K1 on the validation path ({cfg.compute_dtype} compute, eval BN, no autograd): {n_elbo} "
-        f"calls of make_validation_fn at {b} images + {len(calls) - n_elbo} of "
-        f"make_eval_loss_fn at {cfg.batch_size}, levels {shapes}; K1 vs plain CE on the same "
-        f"card tensors, worst per-level rel {worst:.3e} (tol {rtol:g}, phase 2's for the levels' "
-        f"dtype); first ELBO "
-        f"draw K1 {[round(v, 3) for v in first[0]]} plain {[round(v, 3) for v in first[1]]}")
+    say(f"{cfg.experiment_name}: K1 on the validation path ({cfg.compute_dtype} compute, eval BN, "
+        f"no autograd): {n_elbo} calls of make_validation_fn at {b} images + "
+        f"{len(calls) - n_elbo} of make_eval_loss_fn at {cfg.batch_size}, levels {shapes}; K1 vs "
+        f"plain CE on the same card tensors, worst per-level rel {worst:.3e} (tol {rtol:g}, phase "
+        f"2's for the levels' dtype); first ELBO draw K1 {[round(v, 3) for v in first[0]]} plain "
+        f"{[round(v, 3) for v in first[1]]}")
     if not worst <= rtol:
-        fail("K1 disagrees with the plain CE on the validation path")
+        fail(f"{cfg.experiment_name}: K1 disagrees with the plain CE on the validation path")
     return worst
 
 
-def phase_metrics(val):
-    """K1 on the validation path against the plain CE; make_validation_fn
-    and make_eval_loss_fn on the card and on the CPU, one batch, the same
-    noise, both in f32; then GED^2's exactness with TF32 and autocast on."""
-    import numpy as np
+def _saturated(probs) -> float:
+    """The share of the probabilities that are exactly 0 or 1."""
+    return ((probs == 0) | (probs == 1)).float().mean().item()
+
+
+def _validation_card_vs_cpu(cfg, trained, data):
+    """make_validation_fn, make_eval_loss_fn and make_sample_fn of one set
+    of trained weights (BN running statistics included) on the card and on
+    the CPU: VAL_CHECK_BATCH val images, the same noise, both in f32 with
+    TF32 off. The masks may differ only at near-ties; Dice, GED^2, S_NCC
+    (undefined on the same images; where its maps agree, and on identical
+    inputs), the ELBO and the per-level CE agree within VAL_TOL. Returns the images, the sampler's noise, both devices'
+    sample probabilities and their gap."""
     import torch
 
-    from phiseg_tpu_torch.data import get_dataset
     from phiseg_tpu_torch.engine.train import build_model, make_eval_loss_fn, make_sample_fn
     from phiseg_tpu_torch.engine.validation import make_validation_fn
-    from phiseg_tpu_torch.metrics import ged_terms
+    from phiseg_tpu_torch.metrics import variance_ncc_dist, variance_ncc_maps
+    from phiseg_tpu_torch.nn.losses import one_hot
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
 
-    k1_val_err = _k1_on_the_validation_path(val, get_dataset(val["trainer"].cfg))
-    trained = val["trainer"].state.model.state_dict()
-    cfg = val["trainer"].cfg.replace(compute_dtype="float32")
-    data = get_dataset(cfg)
-    b = VAL_CHECK_BATCH
-    x = torch.from_numpy(data.validation.images[:b].astype(np.float32)[..., None])
-    ann = torch.from_numpy(np.transpose(data.validation.labels[:b], (0, 3, 1, 2)).astype(np.int64))
-    s_sel = ann[torch.arange(b), torch.arange(b) % ann.shape[1]]
+    cfg = cfg.replace(compute_dtype="float32")
+    name, b = cfg.experiment_name, VAL_CHECK_BATCH
+    x, ann, s_sel = _val_images(data, b)
     models = {dev: build_model(cfg, device=dev) for dev in ("cuda", "cpu")}
     for m in models.values():
         m.load_state_dict(trained)
@@ -1191,32 +1339,107 @@ def phase_metrics(val):
         ce[dev] = {k: float(v) for k, v in losses.items() if k.startswith("residual_multinoulli")}
         probs[dev] = make_sample_fn(m, cfg.validation_samples)(
             on[0], eps=[e.to(dev) for e in eps_s]).cpu()
-        say(f"metrics on {dev}: {time.perf_counter() - t0:.2f} s incl. a second sampling; K1 "
-            f"launches {frce.LAUNCHES['fused_residual_ce_fwd'] - before}")
+        say(f"{name} metrics on {dev}: {time.perf_counter() - t0:.2f} s incl. a second sampling; "
+            f"K1 launches {frce.LAUNCHES['fused_residual_ce_fwd'] - before}")
     p_rel = ((probs["cuda"] - probs["cpu"]).abs().max() / probs["cpu"].abs().max()).item()
     diff = probs["cuda"].argmax(-1) != probs["cpu"].argmax(-1)
     margin = (probs["cpu"][..., 1] - probs["cpu"][..., 0]).abs()
     n_diff, worst_margin = int(diff.sum()), float(margin[diff].max()) if diff.any() else 0.0
     (d_c, g_c, n_c, e_c), (d_p, g_p, n_p, e_p) = out["cuda"], out["cpu"]
+    # S_NCC is 0/0 where a map does not spread: that must happen on the
+    # same images on both devices. Its two maps (E_ss, E_sy) from each
+    # device's draws are compared first: where they agree within the
+    # tolerance (relative L2 of the centred maps), so does S_NCC; where a
+    # map's spread is made of softmax tails that round-off moves (a
+    # saturated model), its inputs already differ, and the metric is held on
+    # identical inputs instead, the card's draws on both devices.
+    gt = one_hot(ann, cfg.nlabels)
+    maps = {}
+    for dev in probs:
+        e_ss, e_sy = variance_ncc_maps(probs[dev].transpose(0, 1), gt)
+        m = torch.cat([e_ss.unsqueeze(1), e_sy], 1).flatten(2)  # (B,1+M,HW)
+        maps[dev] = m - m.mean(-1, keepdim=True)
+    map_gap = ((maps["cuda"] - maps["cpu"]).norm(dim=-1)
+               / maps["cpu"].norm(dim=-1)).nan_to_num(math.inf).amax(-1)  # (B,)
+    undef = {dev: ~torch.isfinite(n) for dev, n in (("cuda", n_c), ("cpu", n_p))}
+    held = ~undef["cpu"] & (map_gap <= VAL_TOL["sncc_rtol"])
+    p_c = probs["cuda"].transpose(0, 1)
+    same_in = {"cuda": variance_ncc_dist(p_c.cuda(), gt.cuda()).cpu(),
+               "cpu": variance_ncc_dist(p_c, gt)}
+    fin = torch.isfinite(same_in["cpu"])
     errs = {"dice": (d_c - d_p).abs().max().item(), "ged": (g_c - g_p).abs().max().item(),
-            "sncc": ((n_c - n_p).abs() / n_p.abs()).max().item(),
+            "sncc": ((n_c[held] - n_p[held]).abs() / n_p[held].abs()).max().item()
+            if held.any() else 0.0,
+            "sncc_same_in": ((same_in["cuda"][fin] - same_in["cpu"][fin]).abs()
+                             / same_in["cpu"][fin].abs()).max().item() if fin.any() else 0.0,
             "elbo": abs(float(e_c) - float(e_p)) / abs(float(e_p)),
             "ce": max(abs(ce["cuda"][k] - v) / abs(v) for k, v in ce["cpu"].items())}
-    say(f"metrics card vs CPU ({b} val images, {cfg.validation_samples} samples, "
+    say(f"{name} metrics card vs CPU ({b} val images, {cfg.validation_samples} samples, "
         f"{cfg.validation_elbo_samples} ELBO draws, f32, TF32 off): probabilities max rel "
-        f"{p_rel:.3e}; mask pixels that differ {n_diff} of {diff.numel()} (largest |p1-p0| among "
-        f"them {worst_margin:.3e}, near-tie below {TIE:g}); Dice max|diff| {errs['dice']:.3e}, "
-        f"GED^2 max|diff| {errs['ged']:.3e} (atol {VAL_TOL['dice_ged_atol']:g}), S_NCC max rel "
-        f"{errs['sncc']:.3e} (rtol {VAL_TOL['sncc_rtol']:g}), ELBO rel {errs['elbo']:.3e} (rtol "
-        f"{VAL_TOL['elbo_rtol']:g}); GED^2 card {g_c.tolist()} cpu {g_p.tolist()}")
-    say(f"eval losses card (K1) vs CPU (plain CE), f32, first ELBO draw's noise: per-level CE "
-        f"max rel {errs['ce']:.3e} (rtol {VAL_TOL['ce_rtol']:g}); card "
+        f"{p_rel:.3e}, exactly 0 or 1 {_saturated(probs['cuda']):.4%} card, "
+        f"{_saturated(probs['cpu']):.4%} CPU; mask pixels that differ {n_diff} of {diff.numel()} "
+        f"(largest |p1-p0| among them {worst_margin:.3e}, near-tie below {TIE:g}); Dice "
+        f"max|diff| {errs['dice']:.3e}, GED^2 max|diff| {errs['ged']:.3e} (atol "
+        f"{VAL_TOL['dice_ged_atol']:g}), S_NCC undefined on images {undef['cuda'].tolist()} card, "
+        f"{undef['cpu'].tolist()} CPU; its maps card vs CPU, relative L2 per image "
+        f"{[f'{v:.2e}' for v in map_gap.tolist()]}; S_NCC max rel {errs['sncc']:.3e} on the "
+        f"{int(held.sum())} images whose maps agree, on the card's draws card vs CPU "
+        f"{errs['sncc_same_in']:.3e} (undefined alike "
+        f"{torch.equal(fin, torch.isfinite(same_in['cuda']))}) (rtol "
+        f"{VAL_TOL['sncc_rtol']:g}); card {n_c.tolist()} cpu {n_p.tolist()}; ELBO rel "
+        f"{errs['elbo']:.3e} (rtol {VAL_TOL['elbo_rtol']:g}); "
+        f"Dice card {d_c.mean().item():.6g} cpu {d_p.mean().item():.6g}; GED^2 card "
+        f"{g_c.tolist()} cpu {g_p.tolist()}")
+    say(f"{name} eval losses card (K1) vs CPU (plain CE), f32, first ELBO draw's noise: per-level "
+        f"CE max rel {errs['ce']:.3e} (rtol {VAL_TOL['ce_rtol']:g}); card "
         f"{[round(v, 3) for v in ce['cuda'].values()]} cpu {[round(v, 3) for v in ce['cpu'].values()]}")
     if worst_margin >= TIE or errs["dice"] > VAL_TOL["dice_ged_atol"] or \
-            errs["ged"] > VAL_TOL["dice_ged_atol"] or errs["sncc"] > VAL_TOL["sncc_rtol"] or \
-            errs["elbo"] > VAL_TOL["elbo_rtol"] or errs["ce"] > VAL_TOL["ce_rtol"]:
-        fail("validation metrics on the card disagree with the CPU's")
-    del models
+            errs["ged"] > VAL_TOL["dice_ged_atol"] or not errs["sncc"] <= VAL_TOL["sncc_rtol"] or \
+            not errs["sncc_same_in"] <= VAL_TOL["sncc_rtol"] or \
+            not torch.equal(undef["cuda"], undef["cpu"]) or \
+            not torch.equal(fin, torch.isfinite(same_in["cuda"])) or \
+            not errs["elbo"] <= VAL_TOL["elbo_rtol"] or not errs["ce"] <= VAL_TOL["ce_rtol"]:
+        fail(f"{name}: validation metrics on the card disagree with the CPU's")
+    return x, eps_s, probs, p_rel
+
+
+def phase_metrics(val):
+    """K1 on the validation path against the plain CE; make_validation_fn
+    and make_eval_loss_fn on the card and on the CPU, one batch, the same
+    noise, both in f32, then the sampler in f64; then GED^2's exactness
+    with TF32 and autocast on."""
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.train import build_model, make_sample_fn
+    from phiseg_tpu_torch.metrics import ged_terms
+
+    cfg, model = val["trainer"].cfg, val["trainer"].state.model
+    data = get_dataset(cfg)
+    k1_val_err = _k1_on_the_validation_path(cfg, model, data)
+    trained = model.state_dict()
+    x, eps_s, probs, p_rel = _validation_card_vs_cpu(cfg, trained, data)
+    b = x.shape[0]
+
+    # The same draws in f64 on both devices (the sampler runs no CE, so the
+    # kernels' f32/bf16 inputs do not bind): if the card's arithmetic is
+    # right, the f32 gap is f32 round-off amplified by the model, and the
+    # f64 gap is that much f64 round-off.
+    cfg64 = cfg.replace(compute_dtype="float64")
+    probs64 = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(cfg64, device=dev).double()
+        m.load_state_dict(trained)
+        probs64[dev] = make_sample_fn(m, cfg.validation_samples)(
+            x.to(dev, torch.float64), eps=[e.to(dev, torch.float64) for e in eps_s]).cpu()
+        del m
+    p_rel64 = ((probs64["cuda"] - probs64["cpu"]).abs().max() / probs64["cpu"].abs().max()).item()
+    f32_vs_64 = (probs["cpu"].double() - probs64["cpu"]).abs().max().item()
+    say(f"sample probabilities card vs CPU, same weights and noise ({b} val images x "
+        f"{cfg.validation_samples} samples): max|diff|/max {p_rel:.3e} in f32 (TF32 off), "
+        f"{p_rel64:.3e} in f64 (tol {F64_GAP:g}); the CPU's f32 vs its f64 {f32_vs_64:.3e}")
+    if not p_rel64 <= F64_GAP:
+        fail("the card's f64 sample probabilities differ from the CPU's beyond round-off")
 
     # GED^2 on fixed 128x128 masks: exact counts whatever TF32 and autocast say
     gm = torch.Generator(device="cuda").manual_seed(12)
@@ -1293,6 +1516,188 @@ def phase_quantitative(val):
     return {"s_per_image": wall / n, "device_ms_per_image": dev / QUANT_BATCH, "peak_gib": peak}
 
 
+def _undefined_ncc_is_no_spread(model, cfg, data) -> None:
+    """S_NCC on the validation images, as validation draws them, is
+    undefined (0/0) on exactly the images where one of its two maps (E_ss,
+    or an annotator's E_sy) has a population std of 0, the metric's own maps
+    and std; else the NaN would be a fault."""
+    import torch
+
+    from phiseg_tpu_torch.engine.train import make_sample_fn
+    from phiseg_tpu_torch.metrics import population_std, variance_ncc_dist, variance_ncc_maps
+    from phiseg_tpu_torch.nn.losses import one_hot
+
+    n = min(32, data.validation.images.shape[0])
+    x, ann, _ = (t.cuda() for t in _val_images(data, n))
+    probs = make_sample_fn(model, cfg.validation_samples)(x, torch.Generator(device="cuda")
+                                                          ).transpose(0, 1)  # (B,S,H,W,C)
+    gt = one_hot(ann, cfg.nlabels)
+    undef = ~torch.isfinite(variance_ncc_dist(probs, gt))
+    e_ss, e_sy = variance_ncc_maps(probs, gt)
+    maps = torch.cat([e_ss.unsqueeze(1), e_sy], 1).flatten(2)  # (B,1+M,HW)
+    no_spread = (population_std(maps).squeeze(-1) == 0).any(-1)
+    constant = (maps.amax(-1) == maps.amin(-1)).any(-1)
+    batch_bn = copy.deepcopy(model).train()  # the batch's own BN statistics, on a copy
+    with torch.no_grad():
+        logits = batch_bn(x, one_hot(ann[:, 0], cfg.nlabels)).s_out_list[0]
+    say(f"{cfg.experiment_name} S_NCC on {n} val images, eval mode: undefined on "
+        f"{int(undef.sum())}; a map with std 0 on {int(no_spread.sum())} (exactly constant on "
+        f"{int(constant.sum())}); {_saturated(probs):.4%} of the probabilities are exactly 0 or 1 "
+        f"with the running BN statistics, {_saturated(torch.softmax(logits.float(), -1)):.4%} "
+        f"with the batch's own")
+    if not torch.equal(undef, no_spread):
+        fail(f"{cfg.experiment_name}: S_NCC is undefined on other images than those whose maps "
+             "do not spread")
+
+
+def phase_families():
+    """The Probabilistic U-Net and the deterministic U-Net at full width:
+    VAL_ITERS steps through the train CLI with two validations each; K1 on
+    each validation path against the plain CE, and each trained model's
+    validation on the card against the CPU's; the ProbUNet's kernel step
+    against its plain step; its 100-sample sampler.
+    Returns each family's log dir, launches and memory layout of its level."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.train import build_model
+    from phiseg_tpu_torch.experiments import get_experiment
+    from phiseg_tpu_torch.nn.losses import one_hot
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    out = {}
+    for name in FAMILY_EXPERIMENTS:
+        cfg = get_experiment(name).replace(validation_frequency=VAL_FREQ,
+                                           tensorboard_update_frequency=1)
+        root = os.path.join(OUT_DIR, name)
+        os.makedirs(root)
+        cfg_path, log_dir = os.path.join(root, "config.json"), os.path.join(root, "log")
+        cfg.save(cfg_path)
+        n_images = min(cfg.synth_n_val, int(cfg.num_validation_images))
+        per_val = _validation_k1(cfg, n_images)
+        say(f"family: {name} ({cfg.model_family}) R={cfg.resolution_levels} n0={cfg.n0} "
+            f"zdim0={cfg.zdim0} {cfg.image_size} batch {cfg.batch_size} {cfg.compute_dtype} "
+            f"norm={cfg.norm} {cfg.optimizer} annotators {cfg.annotator_range} KL weight "
+            f"{cfg.kl_divergence_loss_weight}; {VAL_ITERS} steps validating every {VAL_FREQ}")
+        # S_NCC of one deterministic draw is undefined (0/0) on an image
+        # whose entropy map E_ss does not spread, as where every softmax of a
+        # young model in eval mode saturates to exactly 0 and 1; the JAX
+        # package and the reference give NaN there too. Checked below, and
+        # the saturation held against the CPU's.
+        nan_ok = ("validation_NCC",) if cfg.model_family == "det_unet" else ()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, launches, records, wall, recs = _train_with_validations(cfg_path, log_dir, nan_ok)
+        peak = max(r["steps_peak_gib"] for r in records)
+        _say_validations(records, per_val, f"{name} ")
+
+        want_keys = ["residual_multinoulli_loss_lvl0", "total_loss"]
+        if cfg.kl_divergence_loss_weight is not None:
+            want_keys.append("KL_divergence_loss_lvl0")
+        train_recs = [r for r in recs if "batch_total_loss" in r]
+        keys = sorted(k[len("batch_"):] for k in train_recs[0] if k.startswith("batch_"))
+        want_k1 = VAL_ITERS + 2 * per_val
+        init = build_model(cfg, device="cpu", seed=cfg.seed).state_dict()
+        trained = trainer.state.model.state_dict()
+        params = [n for n, _ in trainer.state.model.named_parameters()]
+        unchanged = [n for n in params if torch.equal(init[n], trained[n].cpu())]
+        nonfinite = [n for n, t in trained.items() if not torch.isfinite(t).all()]
+        step_ms = [1000.0 * cfg.batch_size / r["images_per_sec"] for r in train_recs[2:]]
+        say(f"{name}: loss keys {keys}; total {train_recs[0]['batch_total_loss']:.6g} -> "
+            f"{train_recs[-1]['batch_total_loss']:.6g}; {len(params)} parameter tensors, "
+            f"unchanged {len(unchanged)}, non-finite {len(nonfinite)}; K1 "
+            f"{launches['fused_residual_ce_fwd']} = {VAL_ITERS} steps + 2 x {per_val}, K2 "
+            f"{launches['fused_residual_ce_bwd']}")
+        say(f"{name} time: median step {statistics.median(step_ms):.3f} ms over steps 2.."
+            f"{VAL_ITERS - 1} (each step synchronised for its log line); {wall:.2f} s of wall "
+            f"time with 2 validations; peak device memory of the train steps {peak:.3f} GiB")
+        if keys != sorted(want_keys):
+            fail(f"{name} loss keys {keys}, not {sorted(want_keys)}")
+        if unchanged or nonfinite:
+            fail(f"{name} parameters unchanged: {unchanged[:5]}; non-finite: {nonfinite[:5]}")
+        if launches["fused_residual_ce_fwd"] != want_k1 or \
+                launches["fused_residual_ce_bwd"] != VAL_ITERS or launches["fused_residual_ce_dp"]:
+            fail(f"{name} launches {launches}")
+
+        # the kernels read the family's one f32 level in place
+        data = get_dataset(cfg)
+        x, s = data.train.next_batch(cfg.batch_size)
+        x = torch.from_numpy(x).cuda()
+        s = torch.from_numpy(s.astype(np.uint8)).cuda()
+        with torch.no_grad():
+            levels = trainer.state.model(x, one_hot(s, cfg.nlabels),
+                                         generator=torch.Generator(device="cuda").manual_seed(9)
+                                         ).s_out_list
+        read = frce._levels_nchw(levels)
+        layout = "planes" if frce._planes(read) else "rows"
+        say(f"{name}: its level {tuple(levels[0].shape)} {levels[0].dtype} (strides "
+            f"{levels[0].stride()}) is {layout} in memory; read in place "
+            f"{read[0].data_ptr() == levels[0].data_ptr()}")
+        if len(levels) != 1 or read[0].data_ptr() != levels[0].data_ptr():
+            fail(f"{name}: the kernels do not read its one level in place")
+        k1_err = _k1_on_the_validation_path(cfg, trainer.state.model, data)
+        _validation_card_vs_cpu(cfg, trained, data)
+        if nan_ok:
+            _undefined_ncc_is_no_spread(trainer.state.model, cfg, data)
+        out[name] = {"log_dir": log_dir, "launches": launches, "k1_val_err": k1_err,
+                     "val_launches": records[0]["launches"], "layout": layout}
+        if cfg.model_family == "prob_unet":
+            _kernel_vs_plain_step(cfg, x, s, head="likelihood.prediction")
+            phase_sampler(trainer, f"trained {VAL_ITERS} steps above")
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_predictions(log_dirs):
+    """test_predictions through its CLI on best_dice of each log dir: the npz
+    contract, s/image of wall time, device ms/image and peak memory."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.cli.test_predictions import main as pred_main
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.loading import load_experiment
+    from phiseg_tpu_torch.engine.train import make_sample_fn
+    from phiseg_tpu_torch.metrics import dice_per_label
+
+    res = {}
+    for name, log_dir in log_dirs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dice = pred_main([log_dir, "--samples", str(SAMPLES), "--batch", str(QUANT_BATCH)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with np.load(os.path.join(log_dir, "dice_best_dice.npz")) as z:
+            keys, arr = list(z.keys()), z["arr_0"]
+        ok = (keys == ["arr_0"] and arr.shape == (32, 2) and np.isfinite(arr).all()
+              and ((arr >= 0) & (arr <= 1)).all() and np.array_equal(arr, dice))
+
+        cfg, model, _, _ = load_experiment(log_dir, "best_dice")
+        n = 1 if cfg.model_family == "det_unet" else SAMPLES
+        data = get_dataset(cfg)
+        x = torch.from_numpy(data.test.images[:QUANT_BATCH].astype(np.float32)[..., None]).cuda()
+        s_sel = torch.from_numpy(data.test.labels[:QUANT_BATCH, :, :, 0].astype(np.int64)).cuda()
+        sample = make_sample_fn(model, n)
+        g = torch.Generator(device="cuda").manual_seed(0)
+        dev = device_ms(lambda: dice_per_label(sample(x, g).mean(0).argmax(-1), s_sel, cfg.nlabels),
+                        iters=1, warmup=1, sleep_cycles=400_000_000)
+        say(f"test_predictions {name} best_dice, {n} samples, batch {QUANT_BATCH}: npz keys {keys} "
+            f"{arr.shape}, foreground Dice {arr[:, 1].mean():.6g} +- {arr[:, 1].std():.6g}; "
+            f"{wall:.2f} s = {wall / 32:.4f} s/image of wall time (restore, data and logging "
+            f"included); device {dev:.3f} ms per batch = {dev / QUANT_BATCH:.3f} ms/image (CUDA "
+            f"events, host kept ahead, 1 call); peak device memory {peak:.3f} GiB")
+        if not ok:
+            fail(f"test_predictions's file for {name} breaks the npz contract")
+        res[name] = {"s_per_image": wall / 32, "device_ms_per_image": dev / QUANT_BATCH,
+                     "peak_gib": peak}
+        del model
+    return res
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1301,18 +1706,23 @@ def main() -> None:
     layout, _ = phase_in_context(cfg)
     dp_outs, k3_err = phase_dp(cfg)
     phase_mesh1()
-    phase_sampler(trainer)
+    phase_sampler(trainer, "trained in phase 3")
     val = phase_validate()
     k1_val_err = phase_metrics(val)
     phase_quantitative(val)
+    fam = phase_families()
+    phase_predictions({EXPERIMENT: val["log_dir"], **{n: f["log_dir"] for n, f in fam.items()}})
 
     import torch
 
     pixels = cfg.batch_size * cfg.image_hw[0] * cfg.image_hw[1]
+    layout_l1, val_l1 = (fam[FAMILY_EXPERIMENTS[0]][k] for k in ("layout", "val_launches"))
     kernels = []
     for k in ("fwd", "bwd"):
         b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels, cfg.nlabels, k == "bwd"))
-        t = times[k, layout]  # in the memory layout of the main path's levels
+        b1_ms, b1_by = bound_ms(*ce_work(1, pixels, cfg.nlabels, k == "bwd"))
+        t = times[k, layout, 5]  # in the memory layout of the main path's levels
+        t1, lib = times[k, layout_l1, 1], times["library", k]
         kernels.append(
             {"name": f"fused_residual_ce_{k}", "route": "cuda", "source": KERNEL_SOURCE,
              "replaces": TPU_KERNELS[k], "launches": launches[f"fused_residual_ce_{k}"],
@@ -1322,7 +1732,17 @@ def main() -> None:
              "launches_validation_path": (val["launches"][f"fused_residual_ce_{k}"]
                                           - VAL_ITERS),
              "max_rel_err_validation_path": k1_val_err if k == "fwd" else None,
-             "share_of_bound": b_ms / t["cold"], "layout": layout, "variant": t["variant"]})
+             "share_of_bound": b_ms / t["cold"], "layout": layout, "variant": t["variant"],
+             # at L=1, B=12, 128x128, the U-Net families' shape (phase 11)
+             "launches_l1": sum(f["launches"][f"fused_residual_ce_{k}"] for f in fam.values()),
+             "launches_l1_per_validation": val_l1[f"fused_residual_ce_{k}"],
+             "max_rel_err_validation_path_l1": (max(f["k1_val_err"] for f in fam.values())
+                                                if k == "fwd" else None),
+             "ms_l1": t1["cold"], "ms_l1_l2_warm": t1["warm"],
+             "ms_l1_l2_cold_read_flush": t1["cold_read"], "plain_ms_l1": t1["plain"],
+             "bound_ms_l1": b1_ms, "bound_by_l1": b1_by, "share_of_bound_l1": b1_ms / t1["cold"],
+             "library_ms_l1": lib["cold"], "library_ms_l1_l2_warm": lib["warm"],
+             "library_ms_l1_l2_cold_read_flush": lib["cold_read"], "layout_l1": layout_l1})
     # K3 on one rank: K1 over its shard (the all_reduce moves L floats)
     b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels // DP_WORLD, cfg.nlabels, False))
     kernels.append(

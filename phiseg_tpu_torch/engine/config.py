@@ -135,6 +135,11 @@ class ExperimentConfig:
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 
+    @property
+    def effective_latent_levels(self) -> int:
+        """The latent levels the model has: 1 for the U-Net families."""
+        return 1 if self.model_family != "phiseg" else self.latent_levels
+
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
 

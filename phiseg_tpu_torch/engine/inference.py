@@ -130,10 +130,9 @@ class InferenceEngine:
                                                      generator)
         return (z, mu, sigma) if return_params else z
 
-    def generate_samples_from_z(self, z, x=None, output_all_levels: bool = False):
-        """Decode given latents (ref :313-322). The PHiSeg likelihood does not
-        read x; it is taken for the reference's signature."""
-        del x
+    def generate_samples_from_z(self, z, x, output_all_levels: bool = False):
+        """Decode given latents with their images x (ref :313-322); the
+        U-Net likelihoods read x, the PHiSeg one does not."""
         with torch.no_grad(), _eval_mode(self.model):
-            levels = self.model.decode_z([self._t(t) for t in z])
+            levels = self.model.decode_z([self._t(t) for t in z], self._t(x, torch.float32))
         return levels if output_all_levels else aggregate_levels(levels)

@@ -203,16 +203,19 @@ def _decode_draws(model: SegVAE, x: torch.Tensor, num_samples: int, lo: int, hi:
     """Per-level logits (hi-lo, B, H, W, C) of draws lo..hi-1 of num_samples.
 
     Each level's noise for ALL draws comes from `generator` in one call
-    (S, B, h, w, zdim), so a rank that decodes a share of the draws gets the
+    (S, *latent shape), so a rank that decodes a share of the draws gets the
     same noise as a single device: sharding does not change the draws.
-    `eps` injects that noise instead.
+    `eps` injects that noise instead. A model without latents decodes once
+    and repeats it, the S identical draws of JAX's vmap over unused keys.
     """
+    n = hi - lo
+    if not model.has_latents:
+        return [t.expand(n, *t.shape) for t in model.decode_sample(model.sample_cache(x))]
     b = x.shape[0]
     if eps is None:
         eps = [torch.randn((num_samples, *shape), generator=generator, device=x.device,
                            dtype=model.dtype)
                for shape in model.latent_shapes(b)]
-    n = hi - lo
     eps = [e[lo:hi].reshape(n * b, *e.shape[2:]) for e in eps]
     cache = model.repeat_cache(model.sample_cache(x), n)
     return [t.reshape(n, b, *t.shape[1:]) for t in model.decode_sample(cache, eps=eps)]

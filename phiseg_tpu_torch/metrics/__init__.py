@@ -6,7 +6,9 @@ from phiseg_tpu_torch.metrics.metrics import (
     generalised_energy_distance,
     ncc,
     pairwise_iou_distance,
+    population_std,
     variance_ncc_dist,
+    variance_ncc_maps,
 )
 
 __all__ = [
@@ -15,5 +17,7 @@ __all__ = [
     "generalised_energy_distance",
     "ncc",
     "pairwise_iou_distance",
+    "population_std",
     "variance_ncc_dist",
+    "variance_ncc_maps",
 ]

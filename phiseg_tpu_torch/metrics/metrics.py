@@ -4,7 +4,9 @@ phiseg_tpu/metrics/metrics.py:28-181).
   generalised_energy_distance  GED^2 (ref utils.py:270-322)
   ged_terms                    its three mean terms
   variance_ncc_dist            S_NCC (ref utils.py:326-370)
+  variance_ncc_maps            its two maps, E_ss and E_sy
   ncc                          (ref utils.py:103-118)
+  population_std               its std, as numpy's and jnp's in f32
   dice_per_label               with the eval CLIs' edge cases
 
 The JAX package vmaps its single-image functions over images; here every
@@ -102,15 +104,23 @@ def ged_terms(sample_arr: torch.Tensor, gt_arr: torch.Tensor, nlabels: int,
     return d_sy / (n * m), d_ss / n ** 2, d_yy / m ** 2
 
 
+def population_std(x: torch.Tensor) -> torch.Tensor:
+    """The std over the last axis as numpy and jnp take it in f32 (ddof 0):
+    the mean of the squared deviations, so that deviations below ~1e-19
+    square to 0 and a map that spreads by less has std 0. (torch.std on
+    the CPU accumulates in f64 and keeps them.)"""
+    return (x - x.mean(-1, keepdim=True)).square().mean(-1, keepdim=True).sqrt()
+
+
 def ncc(a: torch.Tensor, v: torch.Tensor, zero_norm: bool = True) -> torch.Tensor:
     """Normalised cross-correlation of two maps (ref utils.py:103-118), over
-    the last two axes of a and v (..., H, W) -> (...) f32. The std is the
-    population one (ddof 0), as numpy's and jnp's."""
+    the last two axes of a and v (..., H, W) -> (...) f32, with
+    population_std: 0/0 where either map's std is 0."""
     a = a.float().flatten(-2)
     v = v.float().flatten(-2)
     size = a.shape[-1]
-    a_std = a.std(-1, correction=0, keepdim=True)
-    v_std = v.std(-1, correction=0, keepdim=True)
+    a_std = population_std(a)
+    v_std = population_std(v)
     if zero_norm:
         a = (a - a.mean(-1, keepdim=True)) / (a_std * size)
         v = (v - v.mean(-1, keepdim=True)) / v_std
@@ -120,14 +130,13 @@ def ncc(a: torch.Tensor, v: torch.Tensor, zero_norm: bool = True) -> torch.Tenso
     return (a * v).sum(-1)
 
 
-def variance_ncc_dist(sample_probs: torch.Tensor, gt_onehot: torch.Tensor) -> torch.Tensor:
-    """S_NCC: NCC between the sample-variance and sample-vs-GT error maps.
+def variance_ncc_maps(sample_probs: torch.Tensor, gt_onehot: torch.Tensor):
+    """The two maps whose NCC is S_NCC (utils.py:349-363), in f32.
 
     sample_probs: (..., N, H, W, C) softmax probabilities of N prior draws;
-    gt_onehot: (..., M, H, W, C) one-hot annotations -> (...) f32. The
-    pixelwise CE maps E_ss (draws vs their mean) and E_sy_j (draws vs
-    annotation j), then the mean over annotators of ncc(E_ss, E_sy_j)
-    (utils.py:326-370).
+    gt_onehot: (..., M, H, W, C) one-hot annotations -> (E_ss (..., H, W),
+    E_sy (..., M, H, W)): the pixelwise CE of the draws against their mean
+    and against each annotation j. Where a map's std is 0 its NCC is 0/0.
     """
     eps = 1e-8
     with torch.autocast(sample_probs.device.type, enabled=False):
@@ -138,6 +147,16 @@ def variance_ncc_dist(sample_probs: torch.Tensor, gt_onehot: torch.Tensor) -> to
         mean_seg = probs.mean(-4)                             # (..., H, W, C)
         e_ss = -(mean_seg * log_sum).sum(-1) / n              # (..., H, W)
         e_sy = -(gt_onehot.float() * log_sum.unsqueeze(-4)).sum(-1) / n  # (..., M, H, W)
+        return e_ss, e_sy
+
+
+def variance_ncc_dist(sample_probs: torch.Tensor, gt_onehot: torch.Tensor) -> torch.Tensor:
+    """S_NCC: NCC between the sample-variance and sample-vs-GT error maps
+    of variance_ncc_maps, the mean over annotators of ncc(E_ss, E_sy_j)
+    (utils.py:326-370). Shapes as variance_ncc_maps's -> (...) f32.
+    """
+    e_ss, e_sy = variance_ncc_maps(sample_probs, gt_onehot)
+    with torch.autocast(sample_probs.device.type, enabled=False):
         return ncc(e_ss.unsqueeze(-3), e_sy).mean(-1)
 
 

@@ -1,5 +1,5 @@
-"""Shared building blocks of the PHiSeg networks (port of
-phiseg_tpu/models/components.py:35-188).
+"""Shared building blocks of the model families (port of
+phiseg_tpu/models/components.py:35-230).
 
 All tensors inside are NCHW. Module attribute names are the Flax scope
 names, so `posterior.tower.level0_conv0.conv.weight` here is
@@ -131,3 +131,39 @@ class LatentHierarchy(nn.Module):
             if z_chain_source is None:
                 z[i] = reparameterize(mu[i], sigma[i], eps[i], generator)
         return tuple(z), tuple(mu), tuple(sigma)
+
+
+class UNetCore(nn.Module):
+    """U-Net encoder + decoder, returning the full-resolution feature map
+    (ref likelihoods.py:28-71, :104-145; JAX components.py:191-230).
+
+    Each decoder step upsamples bilinearly x2, concatenates the encoder
+    feature of the next finer level and runs three conv blocks. Every
+    decoder conv of step jj has ch[R - jj - 1] channels, the deeper level's
+    count, a reference quirk kept for parity.
+    """
+
+    def __init__(self, in_features: int, n0: int, resolution_levels: int,
+                 norm: str = "batch", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        R = resolution_levels
+        ch = default_channels(n0, R)
+        self.resolution_levels = R
+        self.encoder = EncoderTower(in_features, n0, R, norm, dtype)
+        cin = ch[R - 1]
+        for jj in range(R - 1):
+            cin += ch[R - jj - 2]  # the skip's channels
+            for k in range(3):
+                self.add_module(f"dec{jj}_conv{k}",
+                                ConvBlock(cin, ch[R - jj - 1], norm=norm, dtype=dtype))
+                cin = ch[R - jj - 1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        R = self.resolution_levels
+        enc = self.encoder(x)
+        net = enc[-1]
+        for jj in range(R - 1):
+            net = torch.cat([upsample_bilinear(net, 2), enc[R - jj - 2]], dim=1)
+            for k in range(3):
+                net = getattr(self, f"dec{jj}_conv{k}")(net)
+        return net

@@ -1,8 +1,12 @@
-"""The PHiSeg posterior, prior and likelihood (port of
-phiseg_tpu/models/families.py:51-222). Tensors inside are NCHW.
+"""The posteriors, priors and likelihoods of the three model families (port
+of phiseg_tpu/models/families.py:51-407). Tensors inside are NCHW; the
+Probabilistic U-Net's latents are (B, zdim) vectors.
 
-The Probabilistic U-Net and deterministic U-Net families are not ported yet
-(ROADMAP Queue 1: the other two families).
+  PHiSeg             hierarchical posterior / prior over L latent levels and
+                     a per-level residual likelihood;
+  Probabilistic U-Net one global latent from a pooled encoder, broadcast over
+                     a U-Net's last feature map;
+  deterministic U-Net a plain U-Net likelihood without latents.
 """
 
 from __future__ import annotations
@@ -10,16 +14,20 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from phiseg_tpu_torch.models.components import (
     EncoderTower,
     LatentHierarchy,
+    UNetCore,
     default_channels,
 )
 from phiseg_tpu_torch.nn.layers import (
     ConvBlock,
     at_least_f32,
+    global_avg_pool,
+    reparameterize,
     resize_nearest,
     upsample_bilinear,
 )
@@ -108,8 +116,11 @@ class PhiSegLikelihood(nn.Module):
             self.add_module(f"out{i}", ConvBlock(post_c_ch[i], nlabels, kernel_size=1,
                                                  activation=None, norm="none", dtype=dtype))
 
-    def forward(self, z_list: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        """Per-level f32 logits, NCHW at the image size, finest level first."""
+    def forward(self, z_list: Sequence[torch.Tensor],
+                x: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+        """Per-level f32 logits, NCHW at the image size, finest level first.
+        x is not read: the PHiSeg likelihood decodes the latents alone."""
+        del x
         L, D = self.latent_levels, self.lvl_diff
         post_z = []
         for i in range(L):
@@ -141,3 +152,151 @@ class PhiSegLikelihood(nn.Module):
     def from_features(self, cache, z_list: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         del cache
         return self(z_list)
+
+
+# ---------------------------------------------------------------------------
+# Probabilistic U-Net (ref posteriors.py:9-52, priors.py:8-48,
+# likelihoods.py:81-159; JAX families.py:231-369)
+# ---------------------------------------------------------------------------
+
+
+class GlobalGaussianEncoder(nn.Module):
+    """Encoder tower, 1x1 (mu, sigma) heads with biases and no norm, then a
+    global average pool; softplus comes BEFORE the pool, as in the reference
+    (JAX families.py:255-259). Returns (mu, sigma), each (B, zdim)."""
+
+    def __init__(self, in_features: int, zdim0: int, n0: int, resolution_levels: int,
+                 norm: str = "batch", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        ch = default_channels(n0, resolution_levels)
+        self.tower = EncoderTower(in_features, n0, resolution_levels, norm, dtype)
+        self.pre_mu = ConvBlock(ch[-1], zdim0, kernel_size=1, activation=None, norm="none",
+                                dtype=dtype)
+        self.pre_sigma = ConvBlock(ch[-1], zdim0, kernel_size=1, activation=F.softplus,
+                                   norm="none", dtype=dtype)
+
+    def forward(self, inp: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        feats = self.tower(inp)[-1]
+        return global_avg_pool(self.pre_mu(feats)), global_avg_pool(self.pre_sigma(feats))
+
+
+def _draw_one(mu: torch.Tensor, sigma: torch.Tensor, eps: Optional[Sequence[torch.Tensor]],
+              generator: Optional[torch.Generator]):
+    """The one-level (z, mu, sigma) tuples of a global latent."""
+    z = reparameterize(mu, sigma, None if eps is None else eps[0], generator)
+    return (z,), (mu,), (sigma,)
+
+
+class ProbUNetPosterior(nn.Module):
+    """One global latent q(z | x, s) (ref posteriors.py:9-52)."""
+
+    def __init__(self, image_channels: int, nlabels: int, zdim0: int, n0: int,
+                 resolution_levels: int, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.encoder = GlobalGaussianEncoder(image_channels + nlabels, zdim0, n0,
+                                             resolution_levels, norm, dtype)
+
+    def forward(self, x: torch.Tensor, s_oh: torch.Tensor,
+                eps: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        inp = torch.cat([x, s_oh - 0.5], dim=1).to(self.dtype)
+        return _draw_one(*self.encoder(inp), eps, generator)
+
+
+class ProbUNetPrior(nn.Module):
+    """One global latent p(z | x) (ref priors.py:8-48). There is no chain, so
+    teacher forcing has nothing to feed: with `z_teacher` given (the training
+    forward) only (mu, sigma) are wanted, and no z is drawn."""
+
+    def __init__(self, image_channels: int, zdim0: int, n0: int, resolution_levels: int,
+                 norm: str = "batch", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.encoder = GlobalGaussianEncoder(image_channels, zdim0, n0, resolution_levels,
+                                             norm, dtype)
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mu, sigma) of x, each (B, zdim)."""
+        return self.encoder(x.to(self.dtype))
+
+    def heads(self, cache, z_teacher=None, eps: Optional[Sequence[torch.Tensor]] = None,
+              generator: Optional[torch.Generator] = None):
+        mu, sigma = cache
+        if z_teacher is not None:
+            return (None,), (mu,), (sigma,)
+        return _draw_one(mu, sigma, eps, generator)
+
+    def forward(self, x: torch.Tensor, z_teacher=None,
+                eps: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        return self.heads(self.encode(x), z_teacher=z_teacher, eps=eps, generator=generator)
+
+
+class _UNetHead(nn.Module):
+    """UNetCore, three 1x1 conv blocks of n0 channels with batch norm
+    (`recomb0..2`) and the 1x1 `prediction` conv, whose logits are cast to
+    f32; the shared layout of both U-Net likelihoods (ref likelihoods.py:
+    10-79, :81-159). `extra` channels join the U-Net's features before the
+    first 1x1 block."""
+
+    def __init__(self, image_channels: int, n0: int, resolution_levels: int, nlabels: int,
+                 extra: int, norm: str, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.unet = UNetCore(image_channels, n0, resolution_levels, norm, dtype)
+        cin = default_channels(n0, resolution_levels)[1] + extra  # the last decoder step's
+        for k in range(3):
+            self.add_module(f"recomb{k}", ConvBlock(cin, n0, kernel_size=1, norm=norm, dtype=dtype))
+            cin = n0
+        self.prediction = ConvBlock(n0, nlabels, kernel_size=1, activation=None, norm="none",
+                                    dtype=dtype)
+
+    def _tail(self, net: torch.Tensor) -> torch.Tensor:
+        for k in range(3):
+            net = getattr(self, f"recomb{k}")(net)
+        return at_least_f32(self.prediction(net))
+
+
+class ProbUNetLikelihood(_UNetHead):
+    """U-Net likelihood with the latent tiled over the grid and concatenated
+    after the last decoder feature map (ref likelihoods.py:147-157). The U-Net
+    features depend on x alone: the sampler computes them once per image."""
+
+    def __init__(self, image_channels: int, zdim0: int, n0: int, resolution_levels: int,
+                 nlabels: int, norm: str = "batch", dtype: torch.dtype = torch.float32):
+        super().__init__(image_channels, n0, resolution_levels, nlabels, zdim0, norm, dtype)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        return self.unet(x.to(self.dtype))
+
+    def from_features(self, feats: torch.Tensor,
+                      z_list: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        z = z_list[0].to(self.dtype)  # (B, zdim)
+        b, _, h, w = feats.shape
+        z_b = z[:, :, None, None].expand(b, z.shape[1], h, w)
+        return (self._tail(torch.cat([feats, z_b], dim=1)),)
+
+    def forward(self, z_list: Sequence[torch.Tensor], x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return self.from_features(self.features(x), z_list)
+
+
+class DetUNetLikelihood(_UNetHead):
+    """Plain U-Net p(s | x); no latents (ref likelihoods.py:10-79). Its
+    features are its f32 logits."""
+
+    def __init__(self, image_channels: int, n0: int, resolution_levels: int, nlabels: int,
+                 norm: str = "batch", dtype: torch.dtype = torch.float32):
+        super().__init__(image_channels, n0, resolution_levels, nlabels, 0, norm, dtype)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        return self._tail(self.unet(x.to(self.dtype)))
+
+    def from_features(self, logits: torch.Tensor, z_list=None) -> Tuple[torch.Tensor, ...]:
+        del z_list
+        return (logits,)
+
+    def forward(self, z_list, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        del z_list
+        return self.from_features(self.features(x))

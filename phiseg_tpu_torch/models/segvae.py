@@ -1,4 +1,5 @@
-"""SegVAE: the combined segmentation VAE (port of phiseg_tpu/models/segvae.py:43-134).
+"""SegVAE: the combined segmentation VAE of the three model families (port of
+phiseg_tpu/models/segvae.py:43-174).
 
 The training forward takes and returns the JAX layout (NHWC, class axis
 last) and runs NCHW inside. Train or eval batch-norm mode is the module's
@@ -15,9 +16,12 @@ Methods (ref segvae.py:117-174):
                  in one call, where the JAX package vmaps over keys;
   sample_logits, prior_draw, posterior_draw, decode_z.
 
-Every method that draws takes `eps` (per level, NHWC like z) to inject the
-noise, else draws it from `generator`. Only the PHiSeg family is ported; `prob_unet` and
-`det_unet` raise (ROADMAP Queue 1: the other two families).
+Every method that draws takes `eps` (per level, shaped like z) to inject the
+noise, else draws it from `generator`. PHiSeg's z at each level is an NHWC
+map; the Probabilistic U-Net's one z is a (B, zdim) vector, which passes the
+NCHW/NHWC boundary unchanged. The deterministic U-Net has no latents: its
+z, posterior and prior tuples are empty and every draw decodes the same
+logits.
 """
 
 from __future__ import annotations
@@ -28,7 +32,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from phiseg_tpu_torch.models.families import PhiSegLikelihood, PhiSegPosterior, PhiSegPrior
+from phiseg_tpu_torch.models.families import (
+    DetUNetLikelihood,
+    PhiSegLikelihood,
+    PhiSegPosterior,
+    PhiSegPrior,
+    ProbUNetLikelihood,
+    ProbUNetPosterior,
+    ProbUNetPrior,
+)
 from phiseg_tpu_torch.nn.layers import nchw, nhwc
 
 FAMILIES = ("phiseg", "prob_unet", "det_unet")
@@ -37,7 +49,7 @@ ZTuple = Tuple[torch.Tensor, ...]
 
 @dataclasses.dataclass(frozen=True)
 class ModelOutputs:
-    """Training-forward outputs, each a per-level tuple of NHWC tensors."""
+    """Training-forward outputs, each a per-level tuple in the JAX layout."""
 
     s_out_list: ZTuple  # per-level f32 logits from the likelihood on posterior z
     z: ZTuple           # posterior samples
@@ -55,6 +67,24 @@ def aggregate_levels(s_list: Sequence[torch.Tensor]) -> torch.Tensor:
     return total
 
 
+def _latent_nchw(t: torch.Tensor) -> torch.Tensor:
+    """A latent map NHWC -> NCHW; a (B, zdim) latent as it is."""
+    return nchw(t) if t.ndim == 4 else t
+
+
+def _latent_nhwc(t: torch.Tensor) -> torch.Tensor:
+    """A latent map NCHW -> NHWC; a (B, zdim) latent as it is."""
+    return nhwc(t) if t.ndim == 4 else t
+
+
+def _latents_nchw(eps: Optional[Sequence[torch.Tensor]]):
+    return None if eps is None else [_latent_nchw(e) for e in eps]
+
+
+def _draw_nhwc(out) -> Tuple[ZTuple, ZTuple, ZTuple]:
+    return tuple(tuple(_latent_nhwc(t) for t in part) for part in out)
+
+
 class SegVAE(nn.Module):
     def __init__(self, model_family: str = "phiseg", zdim0: int = 2, n0: int = 32,
                  latent_levels: int = 5, resolution_levels: int = 7, nlabels: int = 2,
@@ -63,11 +93,6 @@ class SegVAE(nn.Module):
         super().__init__()
         if model_family not in FAMILIES:
             raise ValueError(f"unknown model family: {model_family!r}")
-        if model_family != "phiseg":
-            raise NotImplementedError(
-                f"model family {model_family!r} is not ported yet "
-                "(ROADMAP Queue 1: the ProbUNet and DetUNet families)"
-            )
         min_side = min(image_size)
         if min_side < 2 ** (resolution_levels - 1):
             raise ValueError(
@@ -77,15 +102,25 @@ class SegVAE(nn.Module):
                 "encoder level halves the resolution."
             )
         self.model_family = model_family
-        self.zdim0, self.latent_levels = zdim0, latent_levels
-        self.lvl_diff = resolution_levels - latent_levels
+        self.zdim0 = zdim0
         self.image_size = tuple(image_size)
         self.dtype = dtype
         common = dict(n0=n0, resolution_levels=resolution_levels, norm=norm, dtype=dtype)
-        lat = dict(zdim0=zdim0, latent_levels=latent_levels, **common)
-        self.posterior = PhiSegPosterior(image_channels, nlabels, **lat)
-        self.prior = PhiSegPrior(image_channels, **lat)
-        self.likelihood = PhiSegLikelihood(nlabels=nlabels, image_size=image_size, **lat)
+        if model_family == "phiseg":
+            lat = dict(zdim0=zdim0, latent_levels=latent_levels, **common)
+            self.posterior = PhiSegPosterior(image_channels, nlabels, **lat)
+            self.prior = PhiSegPrior(image_channels, **lat)
+            self.likelihood = PhiSegLikelihood(nlabels=nlabels, image_size=image_size, **lat)
+        elif model_family == "prob_unet":  # one global latent, no chain
+            self.posterior = ProbUNetPosterior(image_channels, nlabels, zdim0, **common)
+            self.prior = ProbUNetPrior(image_channels, zdim0, **common)
+            self.likelihood = ProbUNetLikelihood(image_channels, zdim0, nlabels=nlabels, **common)
+        else:  # det_unet: no posterior or prior (ref posteriors.py:135)
+            self.likelihood = DetUNetLikelihood(image_channels, nlabels=nlabels, **common)
+
+    @property
+    def has_latents(self) -> bool:
+        return self.model_family != "det_unet"
 
     def forward(self, x: torch.Tensor, s_oh: torch.Tensor,
                 eps: Optional[Sequence[torch.Tensor]] = None,
@@ -94,57 +129,72 @@ class SegVAE(nn.Module):
         on the posterior z's (ref segvae.py:117-134).
 
         x: (B,H,W,Cin); s_oh: (B,H,W,nlabels). `eps` optionally injects the
-        posterior's noise per level, NHWC like z; else it is drawn from
+        posterior's noise per level, shaped like z; else it is drawn from
         `generator`.
         """
-        eps_nchw = None if eps is None else [nchw(e) for e in eps]
-        z, q_mu, q_sigma = self.posterior(nchw(x), nchw(s_oh), eps=eps_nchw, generator=generator)
+        x_c = nchw(x)
+        if not self.has_latents:
+            s_out = self.likelihood(None, x_c)
+            return ModelOutputs(s_out_list=tuple(nhwc(t) for t in s_out),
+                                z=(), q_mu=(), q_sigma=(), p_mu=(), p_sigma=())
+        z, q_mu, q_sigma = self.posterior(x_c, nchw(s_oh), eps=_latents_nchw(eps),
+                                          generator=generator)
         # Teacher-forced prior: its chain consumes the POSTERIOR's samples
         # (ref priors.py:126, phiseg_model.py:48-59).
-        _, p_mu, p_sigma = self.prior(nchw(x), z_teacher=z)
-        s_out = self.likelihood(z)
-        return ModelOutputs(
-            s_out_list=tuple(nhwc(t) for t in s_out),
-            z=tuple(nhwc(t) for t in z),
-            q_mu=tuple(nhwc(t) for t in q_mu),
-            q_sigma=tuple(nhwc(t) for t in q_sigma),
-            p_mu=tuple(nhwc(t) for t in p_mu),
-            p_sigma=tuple(nhwc(t) for t in p_sigma),
-        )
+        _, p_mu, p_sigma = self.prior(x_c, z_teacher=z)
+        s_out = self.likelihood(z, x_c)
+        z, q_mu, q_sigma, p_mu, p_sigma = _draw_nhwc((z, q_mu, q_sigma, p_mu, p_sigma))
+        return ModelOutputs(s_out_list=tuple(nhwc(t) for t in s_out), z=z, q_mu=q_mu,
+                            q_sigma=q_sigma, p_mu=p_mu, p_sigma=p_sigma)
 
     # -- inference sampling (encode once, draw many) ------------------------
 
-    def latent_shapes(self, batch: int) -> Tuple[Tuple[int, int, int, int], ...]:
-        """NHWC shape of z at each latent level, finest first: the image
-        halved (SAME pooling rounds up) i + R - L times."""
+    def latent_shapes(self, batch: int) -> Tuple[Tuple[int, ...], ...]:
+        """The shape of z at each latent level, finest first. PHiSeg: NHWC,
+        the image halved (SAME pooling rounds up) i + R - L times; the
+        Probabilistic U-Net: (batch, zdim0); the deterministic U-Net: none."""
+        if self.model_family == "prob_unet":
+            return ((batch, self.zdim0),)
+        if not self.has_latents:
+            return ()
         shapes = []
         h, w = self.image_size
-        for _ in range(self.lvl_diff):
+        for _ in range(self.likelihood.lvl_diff):
             h, w = -(-h // 2), -(-w // 2)
-        for _ in range(self.latent_levels):
+        for _ in range(self.likelihood.latent_levels):
             shapes.append((batch, h, w, self.zdim0))
             h, w = -(-h // 2), -(-w // 2)
         return tuple(shapes)
 
     def sample_cache(self, x: torch.Tensor):
-        """(prior encoder features, likelihood features) of x (B,H,W,Cin)."""
-        return self.prior.encode(nchw(x)), self.likelihood.features(x)
+        """All x-dependent computation of prior sampling, of x (B,H,W,Cin):
+        (prior encoder output, likelihood features), or the deterministic
+        U-Net's logits."""
+        x_c = nchw(x)
+        if not self.has_latents:
+            return self.likelihood.features(x_c)
+        return self.prior.encode(x_c), self.likelihood.features(x_c)
 
     def repeat_cache(self, cache, n: int):
         """The cache for n draws per image: row s*B + b holds image b. The
-        prior's heads read only the features at levels >= R-L, so only those
-        are tiled."""
+        PHiSeg prior's heads read only the features at levels >= R-L, so
+        only those are tiled; the Probabilistic U-Net tiles its prior's
+        (mu, sigma) and the likelihood's U-Net features. (The deterministic
+        U-Net's draws are all one decode: the sampler does not tile.)"""
         prior_cache, lik_cache = cache
-        tiled = tuple(None if i < self.lvl_diff else t.repeat(n, 1, 1, 1)
+        if self.model_family == "prob_unet":
+            return tuple(t.repeat(n, 1) for t in prior_cache), lik_cache.repeat(n, 1, 1, 1)
+        tiled = tuple(None if i < self.likelihood.lvl_diff else t.repeat(n, 1, 1, 1)
                       for i, t in enumerate(prior_cache))
         return tiled, lik_cache
 
     def decode_sample(self, cache, eps: Optional[Sequence[torch.Tensor]] = None,
                       generator: Optional[torch.Generator] = None) -> ZTuple:
         """One prior draw per cache row -> per-level f32 logits, NHWC."""
+        if not self.has_latents:
+            return tuple(nhwc(t) for t in self.likelihood.from_features(cache))
         prior_cache, lik_cache = cache
-        eps_nchw = None if eps is None else [nchw(e) for e in eps]
-        z, _, _ = self.prior.heads(prior_cache, eps=eps_nchw, generator=generator)
+        z, _, _ = self.prior.heads(prior_cache, eps=_latents_nchw(eps), generator=generator)
         return tuple(nhwc(t) for t in self.likelihood.from_features(lik_cache, z))
 
     def sample_logits(self, x: torch.Tensor, eps: Optional[Sequence[torch.Tensor]] = None,
@@ -156,19 +206,21 @@ class SegVAE(nn.Module):
 
     def prior_draw(self, x: torch.Tensor, eps: Optional[Sequence[torch.Tensor]] = None,
                    generator: Optional[torch.Generator] = None):
-        """Prior (z, mu, sigma), NHWC (ref generate_prior_samples :325-334)."""
-        eps_nchw = None if eps is None else [nchw(e) for e in eps]
-        out = self.prior(nchw(x), eps=eps_nchw, generator=generator)
-        return tuple(tuple(nhwc(t) for t in part) for part in out)
+        """Prior (z, mu, sigma) (ref generate_prior_samples :325-334)."""
+        if not self.has_latents:
+            return (), (), ()
+        return _draw_nhwc(self.prior(nchw(x), eps=_latents_nchw(eps), generator=generator))
 
     def posterior_draw(self, x: torch.Tensor, s_oh: torch.Tensor,
                        eps: Optional[Sequence[torch.Tensor]] = None,
                        generator: Optional[torch.Generator] = None):
-        """Posterior (z, mu, sigma), NHWC (ref generate_posterior_samples :484-495)."""
-        eps_nchw = None if eps is None else [nchw(e) for e in eps]
-        out = self.posterior(nchw(x), nchw(s_oh), eps=eps_nchw, generator=generator)
-        return tuple(tuple(nhwc(t) for t in part) for part in out)
+        """Posterior (z, mu, sigma) (ref generate_posterior_samples :484-495)."""
+        if not self.has_latents:
+            return (), (), ()
+        return _draw_nhwc(self.posterior(nchw(x), nchw(s_oh), eps=_latents_nchw(eps),
+                                         generator=generator))
 
-    def decode_z(self, z: Sequence[torch.Tensor]) -> ZTuple:
-        """Decode given latents, NHWC (ref generate_samples_from_z :313-322)."""
-        return tuple(nhwc(t) for t in self.likelihood([nchw(t) for t in z]))
+    def decode_z(self, z: Sequence[torch.Tensor], x: torch.Tensor) -> ZTuple:
+        """Decode given latents with x (B,H,W,Cin), which the U-Net
+        likelihoods read, NHWC (ref generate_samples_from_z :313-322)."""
+        return tuple(nhwc(t) for t in self.likelihood([_latent_nchw(t) for t in z], nchw(x)))

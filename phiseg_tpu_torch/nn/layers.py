@@ -43,6 +43,11 @@ def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 2, 2)
 
 
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Global average pool over the spatial dims: NCHW -> (B, C) (ref layers.py:79-81)."""
+    return x.mean(dim=(2, 3))
+
+
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Nearest resize of NCHW to (H, W) with half-pixel centres, as jax.image."""
     return F.interpolate(x, size=tuple(size), mode="nearest-exact")

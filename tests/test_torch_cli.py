@@ -1,7 +1,7 @@
 """The port's test_quantitative CLI on the CPU: the npz contract of the JAX
 package's CLI, read back by its numpy-only eval_plots; and every entry point
-of the new path refusing to fall back to the CPU when the card it defaults
-to is missing."""
+of the port (test_predictions's included) refusing to fall back to the CPU
+when the card it defaults to is missing."""
 
 import json
 import os
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from phiseg_tpu_torch.cli.test_predictions import main as pred_main
 from phiseg_tpu_torch.cli.test_quantitative import main as quant_main
 from phiseg_tpu_torch.cli.train import main as train_main
 from phiseg_tpu_torch.data import get_dataset
@@ -101,7 +102,8 @@ def test_eval_plots_of_the_jax_package_reads_the_ports_files(trained, caplog):
 
 
 @pytest.mark.parametrize("entry", ["Trainer", "load_experiment", "InferenceEngine.from_logdir",
-                                   "cli.train", "cli.test_quantitative"])
+                                   "cli.train", "cli.test_quantitative",
+                                   "cli.test_predictions"])
 def test_entry_points_take_the_card_and_raise_without_one(trained, entry):
     """Without a card every entry point of the new path raises unless it is
     asked for the CPU (on a machine with a card there is nothing to show)."""
@@ -118,6 +120,7 @@ def test_entry_points_take_the_card_and_raise_without_one(trained, entry):
         "InferenceEngine.from_logdir": lambda: InferenceEngine.from_logdir(log_dir),
         "cli.train": lambda: train_main([path, "--num-iter", "4", "--log-dir", log_dir]),
         "cli.test_quantitative": lambda: quant_main([log_dir, "--samples", "2"]),
+        "cli.test_predictions": lambda: pred_main([log_dir, "--samples", "2"]),
     }
     before = sorted(os.listdir(log_dir))
     with pytest.raises(RuntimeError, match="no CUDA card"):

@@ -178,3 +178,27 @@ def test_dice_batched_matches_jax(nlabels):
     got = tm.dice_per_label(_t(pred), _t(gt), nlabels)
     assert got.shape == (4, nlabels) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **IOU)
+
+
+def test_variance_ncc_dist_is_undefined_exactly_where_a_map_has_no_spread():
+    """Draws saturated to exactly 0 and 1 make E_ss constant (image 1), or
+    spread by ~1e-29 so that its f32 std underflows to 0 (image 2): S_NCC is
+    0/0 there, as in the JAX package, and finite where both maps spread."""
+    rng = np.random.RandomState(12)
+    gts = np.eye(2, dtype=np.float32)[(rng.rand(3, 4, 16, 16) > 0.5).astype(int)]
+    probs = _probs(13, (3, 5, 16, 16, 2))
+    hard = np.eye(2, dtype=np.float32)[(rng.rand(16, 16) > 0.5).astype(int)]
+    probs[1] = hard
+    probs[2] = hard
+    probs[2, :, :4, :, 1] = np.where(hard[:4, :, 1] == 0, 1e-30, 1.0)
+    e_ss, e_sy = tm.variance_ncc_maps(_t(probs), _t(gts))
+    assert e_ss.shape == (3, 16, 16) and e_sy.shape == (3, 4, 16, 16)
+    maps = torch.cat([e_ss.unsqueeze(1), e_sy], 1).flatten(-2)
+    no_spread = (tm.population_std(maps).squeeze(-1) == 0).any(-1)
+    got = tm.variance_ncc_dist(_t(probs), _t(gts))
+    want = np.array([float(jm.variance_ncc_dist(jnp.asarray(probs[i]), jnp.asarray(gts[i])))
+                     for i in range(3)])
+    assert (maps[2, 0].amax() > maps[2, 0].amin()).item()  # not constant, yet no spread
+    assert no_spread.tolist() == [False, True, True]
+    assert (~torch.isfinite(got)).tolist() == no_spread.tolist() == (~np.isfinite(want)).tolist()
+    np.testing.assert_allclose(float(got[0]), want[0], **NCC)

@@ -120,12 +120,33 @@ def test_converter_raises_on_unmapped_leaves():
         flax_to_state_dict(short, tmod)
 
 
-def test_segvae_size_check_and_unported_families():
+@pytest.mark.parametrize("family", ["phiseg", "prob_unet", "det_unet"])
+def test_segvae_size_check_and_every_family_builds(family):
+    """Each family keeps the size check, builds, and its state_dict names are
+    exactly the Flax scopes of the JAX model's tree (the converter maps
+    every leaf and leaves no entry empty)."""
     with pytest.raises(ValueError, match="too small"):
-        SegVAE(resolution_levels=7, image_size=(32, 32))
-    for fam in ("prob_unet", "det_unet"):
-        with pytest.raises(NotImplementedError):
-            SegVAE(model_family=fam)
+        SegVAE(model_family=family, resolution_levels=7, image_size=(32, 32))
+    kw = dict(model_family=family, latent_levels=2, resolution_levels=5, n0=4, zdim0=6,
+              nlabels=2, image_size=(32, 32), norm="batch")
+    m = SegVAE(**kw)
+    jmod = JaxSegVAE(**kw)
+    x = jnp.zeros((2, 32, 32, 1))
+    shapes = jax.eval_shape(lambda k: jmod.init({"params": k}, x, jnp.zeros((2, 32, 32, 2)), k,
+                                                train=True), jax.random.PRNGKey(0))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    assert set(flax_to_state_dict(zeros, m)) == set(m.state_dict())
+    assert m.has_latents == (family != "det_unet")
+    if family == "phiseg":
+        return
+    # U-Net decoder convs carry the deeper level's channels (ch = 4, 8, 16,
+    # 24, 24), and the 1x1 head takes the last step's ch[1] (+ zdim0 = 6)
+    unet = m.likelihood.unet
+    assert unet.dec0_conv0.conv.weight.shape[:2] == (24, 24 + 24)
+    assert unet.dec1_conv0.conv.weight.shape[:2] == (24, 24 + 16)
+    assert unet.dec3_conv0.conv.weight.shape[:2] == (8, 16 + 4)
+    extra = 6 if family == "prob_unet" else 0
+    assert m.likelihood.recomb0.conv.weight.shape[:2] == (4, 8 + extra)
 
 
 def test_aggregate_levels_sums_the_levels():

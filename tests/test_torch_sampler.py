@@ -113,7 +113,8 @@ def test_posterior_draw_and_decode_z_match_jax(models):
     z = want[0]
     want_logits = m["jmod"].apply(m["variables"], z, jnp.asarray(m["x"]), method="decode_z")
     with torch.no_grad():
-        got_logits = m["tmod"].decode_z([torch.from_numpy(np.array(t)) for t in z])
+        got_logits = m["tmod"].decode_z([torch.from_numpy(np.array(t)) for t in z],
+                                        torch.from_numpy(m["x"]))
     _close(got_logits, want_logits, "decode_z")
 
 
