@@ -17,10 +17,13 @@ cfg.seed + 101.
 Usage:
   python -m phiseg_tpu_torch.cli.test_predictions <log_dir> [--samples 100]
       [--tag best_dice] [--batch 8] [--max-images N] [--synth-n-test N]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--mesh N]
 
 `--device` defaults to cuda, and without a card that raises; `--device cpu`
-evaluates on the CPU.
+evaluates on the CPU. `--mesh N` splits the draws over N local ranks as
+test_quantitative's does (rank 0 writes; the result is `--mesh 1`'s up to
+the compute dtype's round-off); with one draw (the deterministic U-Net) every rank decodes it whole, as JAX's
+`--mesh` is ignored there (:45).
 """
 
 from __future__ import annotations
@@ -38,15 +41,17 @@ log = logging.getLogger(__name__)
 
 def evaluate(log_dir: str, num_samples: int = 100, tag: str = "best_dice", batch: int = 8,
              max_images: int | None = None, synth_n_test: int | None = None,
-             device: str = "cuda") -> np.ndarray:
+             device: str = "cuda", mesh=None) -> np.ndarray:
     """Score `tag`'s checkpoint of log_dir over the test split; writes
-    dice_{tag}.npz and returns its (n, nlabels) array."""
+    dice_{tag}.npz and returns its (n, nlabels) array. With a mesh the
+    draws are split over its ranks, on the mesh's device, and only rank 0
+    writes."""
     from phiseg_tpu_torch.data import get_dataset
     from phiseg_tpu_torch.engine.loading import load_experiment
     from phiseg_tpu_torch.engine.train import make_sample_fn
     from phiseg_tpu_torch.metrics import dice_per_label
 
-    cfg, model, _, step = load_experiment(log_dir, tag, device)
+    cfg, model, _, step = load_experiment(log_dir, tag, device if mesh is None else mesh.device)
     device = next(model.parameters()).device
     log.info("restored %s @ step %d on %s", tag, step, device)
     if cfg.model_family == "det_unet":
@@ -54,7 +59,7 @@ def evaluate(log_dir: str, num_samples: int = 100, tag: str = "best_dice", batch
     if synth_n_test is not None:
         cfg = cfg.replace(synth_n_test=synth_n_test)  # see test_quantitative
     data = get_dataset(cfg)
-    sample = make_sample_fn(model, num_samples)
+    sample = make_sample_fn(model, num_samples, mesh=mesh if num_samples > 1 else None)
 
     images, labels = data.test.images, data.test.labels
     n = images.shape[0] if max_images is None else min(max_images, images.shape[0])
@@ -78,11 +83,23 @@ def evaluate(log_dir: str, num_samples: int = 100, tag: str = "best_dice", batch
     dice_arr = np.concatenate(dice_list, 0)  # (n, nlabels)
     fg = dice_arr[:, 1:]
     log.info("-- mean foreground Dice: %.4f +- %.4f", fg.mean(), fg.std())
+    if mesh is not None and mesh.rank:
+        return dice_arr
     np.savez(os.path.join(log_dir, f"dice_{tag}.npz"), dice_arr)
     return dice_arr
 
 
-def main(argv=None):
+def _evaluate_rank(kwargs: dict, world_size: int):
+    """One rank of `--mesh N` (runs in a process of its own)."""
+    from phiseg_tpu_torch.parallel import make_mesh
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    return evaluate(**kwargs, mesh=make_mesh(world_size, device=kwargs["device"]))
+
+
+def main(argv=None, timeout=None):
+    """Run the evaluation; returns the (n, nlabels) Dice, rank 0's with
+    `--mesh` (`timeout` bounds the ranks' run, in seconds)."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -95,9 +112,19 @@ def main(argv=None):
                    help="enlarge the synthetic test split for this eval")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to evaluate; cuda without a card raises")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="number of local ranks that split the draws")
     a = p.parse_args(argv)
-    return evaluate(a.log_dir, a.samples, a.tag, a.batch, a.max_images,
-                    synth_n_test=a.synth_n_test, device=a.device)
+    kwargs = dict(log_dir=a.log_dir, num_samples=a.samples, tag=a.tag, batch=a.batch,
+                  max_images=a.max_images, synth_n_test=a.synth_n_test, device=a.device)
+    if a.mesh:
+        from phiseg_tpu_torch import parallel
+
+        parallel.resolve_device(a.device)  # cuda without a card raises here
+        backend = parallel.local_backend(a.device, a.mesh)
+        return parallel.spawn_ranks(_evaluate_rank, a.mesh, (kwargs, a.mesh), backend=backend,
+                                    timeout=timeout)[0]
+    return evaluate(**kwargs)
 
 
 if __name__ == "__main__":

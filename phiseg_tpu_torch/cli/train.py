@@ -124,10 +124,7 @@ def main(argv=None, timeout=None):
         finally:
             torch.distributed.destroy_process_group()
     if args.mesh:
-        if args.device == "cuda" and args.mesh > torch.cuda.device_count():
-            raise ValueError(f"requested {args.mesh} devices, only "
-                             f"{torch.cuda.device_count()} available")
-        backend = "nccl" if args.device == "cuda" else "gloo"
+        backend = parallel.local_backend(args.device, args.mesh)
         return parallel.spawn_ranks(_train_rank, args.mesh,
                                     (cfg.to_json(), args.log_dir, args.device, args.mesh,
                                      resume),

@@ -10,9 +10,16 @@ buffer of the same scope path:
   .../bn/bias             -> .../bn.bias
   batch_stats .../bn/mean -> .../bn.running_mean
   batch_stats .../bn/var  -> .../bn.running_var
+  .../gn/{scale,bias}     -> .../gn.{weight,bias}     (group norm)
+  .../ln/{scale,bias}     -> .../ln.{weight,bias}     (layer norm)
+  .../brn/{scale,bias}    -> .../brn.{weight,bias}    (batch renorm)
+  batch_stats .../brn/{mean,var,steps} -> .../brn.{running_mean,running_var,steps}
+  .../in_scale, .../in_offset -> the same names on the block (instance
+                             norm's parameters sit in the ConvBlock's scope)
 
-It raises on a Flax leaf that maps to nothing in the model, and on a model
-entry that no Flax leaf fills.
+It raises on a Flax leaf that maps to nothing in the model, on a model
+entry that no Flax leaf fills, and on two leaves that fill one entry. Each
+leaf keeps the dtype of the entry it fills (the renorm step count is int32).
 """
 
 from __future__ import annotations
@@ -30,7 +37,18 @@ _LEAF_NAMES = {
     ("params", "bn", "bias"): "bn.bias",
     ("batch_stats", "bn", "mean"): "bn.running_mean",
     ("batch_stats", "bn", "var"): "bn.running_var",
+    ("params", "gn", "scale"): "gn.weight",
+    ("params", "gn", "bias"): "gn.bias",
+    ("params", "ln", "scale"): "ln.weight",
+    ("params", "ln", "bias"): "ln.bias",
+    ("params", "brn", "scale"): "brn.weight",
+    ("params", "brn", "bias"): "brn.bias",
+    ("batch_stats", "brn", "mean"): "brn.running_mean",
+    ("batch_stats", "brn", "var"): "brn.running_var",
+    ("batch_stats", "brn", "steps"): "brn.steps",
 }
+# leaves that sit directly in a ConvBlock's scope (instance norm)
+_BLOCK_LEAVES = {("params", "in_scale"), ("params", "in_offset")}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -47,15 +65,20 @@ def flax_to_state_dict(variables: Mapping, model: nn.Module) -> Dict[str, torch.
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
-            if len(path) < 2 or (collection, path[-2], path[-1]) not in _LEAF_NAMES:
+            if (collection, path[-1]) in _BLOCK_LEAVES:
+                name = ".".join(path)
+            elif len(path) >= 2 and (collection, path[-2], path[-1]) in _LEAF_NAMES:
+                name = ".".join(path[:-2] + (_LEAF_NAMES[(collection, path[-2], path[-1])],))
+            else:
                 raise KeyError(f"unmapped Flax leaf {collection}/{'/'.join(path)}")
-            name = ".".join(path[:-2] + (_LEAF_NAMES[(collection, path[-2], path[-1])],))
             if name not in want:
                 raise KeyError(f"Flax leaf {collection}/{'/'.join(path)} -> {name!r}, "
                                "which the model does not have")
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            t = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+            if name in out:
+                raise KeyError(f"two Flax leaves fill {name!r}")
+            t = torch.from_numpy(np.array(arr, order="C")).to(want[name].dtype)
             if t.shape != want[name].shape:
                 raise ValueError(f"{name}: Flax shape {tuple(t.shape)} vs model "
                                  f"{tuple(want[name].shape)}")

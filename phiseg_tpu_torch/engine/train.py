@@ -25,7 +25,7 @@ import torch
 from phiseg_tpu_torch.engine.config import ExperimentConfig
 from phiseg_tpu_torch.engine.objective import phiseg_objective
 from phiseg_tpu_torch.models.segvae import SegVAE, aggregate_levels
-from phiseg_tpu_torch.nn.layers import init_he_normal_, set_batch_norm_mesh
+from phiseg_tpu_torch.nn.layers import init_weights_, set_batch_norm_mesh
 from phiseg_tpu_torch.nn.losses import one_hot
 from phiseg_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 
@@ -50,7 +50,7 @@ def build_model(cfg: ExperimentConfig, device: DeviceLike = "cuda",
         image_channels=cfg.image_size[2],
     )
     if seed is not None:
-        init_he_normal_(model, torch.Generator().manual_seed(seed))
+        init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 
 

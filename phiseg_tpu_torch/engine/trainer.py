@@ -19,7 +19,9 @@ that improved, and writes the diagnostics. A run resumes from the newest
 `latest` checkpoint by the state's own step, with the trainer's noise
 generator where it was; the final state is saved as `latest` when the loop
 ends normally. Checkpoint writes go through an ordered writer thread
-(`async_checkpointing`), drained when `train` returns or raises.
+(`async_checkpointing`), drained when `train` returns or raises. With
+PHISEG_PROFILE_DIR set, the steps of PHISEG_PROFILE_STEPS are traced into
+it (utils/profiling.py; JAX trainer.py:206-225).
 
 The trainer runs on the card unless it is asked for the CPU: device "cuda"
 without a card raises. With a mesh (parallel.mesh.Mesh) it is one rank of a
@@ -63,6 +65,7 @@ from phiseg_tpu_torch.engine.train import (
 )
 from phiseg_tpu_torch.engine.validation import make_validation_fn
 from phiseg_tpu_torch.parallel.mesh import resolve_device, shard_host_batch, shard_train_step
+from phiseg_tpu_torch.utils.profiling import StepProfiler
 from phiseg_tpu_torch.utils.tb_writer import SummaryWriter
 
 log = logging.getLogger(__name__)
@@ -201,11 +204,16 @@ class Trainer:
         num_iter = cfg.num_iter if num_iter is None else num_iter
         self._open_writer()
         prefetch = _Prefetcher(data.train, cfg.batch_size)
+        # the steps of PHISEG_PROFILE_STEPS traced into PHISEG_PROFILE_DIR
+        # (utils/profiling.py; JAX trainer.py:206-225)
+        self.profiler = StepProfiler(self.device)
         try:
             t_last = time.perf_counter()
             for step in range(self.init_step, num_iter):
+                self.profiler.maybe_start(step)
                 x, s = self._to_device(*prefetch.next())
                 loss_dict = self.train_step(self.state, x, s, self.generator)
+                self.profiler.maybe_stop(step)
 
                 if step % cfg.tensorboard_update_frequency == 0:
                     loss_dict = {k: float(v) for k, v in loss_dict.items()}
@@ -247,6 +255,7 @@ class Trainer:
                 self.ckpt.save(host_snapshot(self.state, self.generator), "latest")
         finally:
             prefetch.stop()
+            self.profiler.close()  # a run that ends inside the window
             # Drain the writer even on an exception, so the writes queued at
             # the last validation land; while an exception unwinds, a writer
             # error is logged instead of raised, so it cannot mask it.

@@ -2,6 +2,7 @@ from phiseg_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     init_distributed,
     init_distributed_from_env,
+    local_backend,
     make_mesh,
     make_sharded_sample_fn,
     resolve_device,

@@ -267,6 +267,17 @@ def _rank_entry(fn, rank, world_size, init_method, backend, args, results):
             dist.destroy_process_group()
 
 
+def local_backend(device: DeviceLike, world_size: int) -> str:
+    """The backend of `world_size` local ranks on `device`, as the CLIs'
+    `--mesh N` picks it: NCCL on cuda, one rank per card (more ranks than
+    cards raises), gloo on the CPU."""
+    backend = _backend_for(device)
+    if backend == "nccl" and world_size > torch.cuda.device_count():
+        raise ValueError(f"requested {world_size} devices, only "
+                         f"{torch.cuda.device_count()} available")
+    return backend
+
+
 def spawn_ranks(fn: Callable, world_size: int, args: tuple = (), backend: str = "gloo",
                 timeout: Optional[float] = None) -> List[Any]:
     """Run fn(*args) in `world_size` fresh processes that form one process

@@ -1,7 +1,9 @@
-"""The port's test_quantitative CLI on the CPU: the npz contract of the JAX
-package's CLI, read back by its numpy-only eval_plots; and every entry point
-of the port (test_predictions's included) refusing to fall back to the CPU
-when the card it defaults to is missing."""
+"""The port's eval CLIs on the CPU: test_quantitative's npz contract of the
+JAX package's CLI, read back by the port's eval_plots and by the JAX
+package's numpy-only one alike; `--mesh 2` (two gloo ranks) giving `--mesh
+1`'s results for test_quantitative and test_predictions; and every entry
+point of the port (the figure CLIs included) refusing to fall back to the
+CPU when the card it defaults to is missing."""
 
 import json
 import os
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from phiseg_tpu_torch.cli import eval_plots, generate_samples, makegif_samples, sample_construction
 from phiseg_tpu_torch.cli.test_predictions import main as pred_main
 from phiseg_tpu_torch.cli.test_quantitative import main as quant_main
 from phiseg_tpu_torch.cli.train import main as train_main
@@ -84,26 +87,81 @@ def test_quantitative_options(trained):
     assert ged.shape == (9,)
 
 
-def test_eval_plots_of_the_jax_package_reads_the_ports_files(trained, caplog):
-    """phiseg_tpu.cli.eval_plots (numpy only) aggregates the port's npz
-    files, GED terms and finite-N/M corrections included."""
+def _aggregate_ports_files(aggregate, log_dir, caplog):
     import logging
 
+    f = os.path.join(log_dir, "ged4_best_ged.npz")
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        res = (aggregate("ged", [f, f], names=["a", "b"]),
+               aggregate("ncc", [os.path.join(log_dir, "ncc4_best_ged.npz")] * 2,
+                         names=["a", "b"]))
+    return res, "\n".join(r.getMessage() for r in caplog.records)
+
+
+def test_eval_plots_of_the_port_aggregates_its_files(trained, caplog):
+    """The port's eval_plots aggregates the port's npz files, GED terms and
+    finite-N/M corrections included."""
+    _, log_dir = trained
+    quant_main([log_dir, "--samples", "4", "--device", "cpu"])
+    (ged, ncc), text = _aggregate_ports_files(eval_plots.aggregate, log_dir, caplog)
+    assert "ged a:" in text and "GED terms a" in text and "ncc b:" in text
+    assert "unbiased GED^2 a" in text and set(ged["unbiased_means"]) == {"a", "b"}
+    assert ncc["means"]["a"] == ncc["means"]["b"]
+
+
+def test_eval_plots_of_the_jax_package_reads_the_ports_files(trained, caplog):
+    """phiseg_tpu.cli.eval_plots (numpy only) aggregates the port's npz
+    files, GED terms and finite-N/M corrections included, to the port's
+    eval_plots' results and log lines."""
     from phiseg_tpu.cli.eval_plots import aggregate
 
     _, log_dir = trained
     quant_main([log_dir, "--samples", "4", "--device", "cpu"])
-    f = os.path.join(log_dir, "ged4_best_ged.npz")
-    with caplog.at_level(logging.INFO):
-        aggregate("ged", [f, f], names=["a", "b"])
-        aggregate("ncc", [os.path.join(log_dir, "ncc4_best_ged.npz")] * 2, names=["a", "b"])
-    text = caplog.text
+    want, want_text = _aggregate_ports_files(aggregate, log_dir, caplog)
+    got, got_text = _aggregate_ports_files(eval_plots.aggregate, log_dir, caplog)
+    text = want_text
     assert "ged a:" in text and "GED terms a" in text and "ncc b:" in text
+    assert repr(got) == repr(want)  # NaN t-tests of identical files, in both
+    assert got_text == want_text
+
+
+@pytest.mark.parametrize("cli", ["test_quantitative", "test_predictions"])
+def test_eval_mesh_2_equals_mesh_1(trained, cli, tmp_path):
+    """`--mesh 2` (two gloo ranks, each decoding half of the draws from the
+    same noise) gives `--mesh 1`'s arrays and files, within rtol 1e-4 / atol
+    1e-5 (JAX tests/test_cli.py:72-92): a rank decodes 3 x B rows instead of
+    6 x B, which may sum the convolutions in another order."""
+    import shutil
+
+    _, log_dir = trained
+    outs = {}
+    for n in (1, 2):
+        d = str(tmp_path / f"mesh{n}")
+        shutil.copytree(log_dir, d)
+        args = [d, "--samples", "6", "--batch", "2", "--device", "cpu", "--mesh", str(n)]
+        main = quant_main if cli == "test_quantitative" else pred_main
+        outs[n] = (d, main(args, timeout=120))
+    (d1, r1), (d2, r2) = outs[1], outs[2]
+    if cli == "test_quantitative":
+        for a, b in zip(r2, r1):
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+        names = ["ged6_best_ged.npz", "ncc6_best_ged.npz"]
+    else:
+        np.testing.assert_allclose(r2, r1, rtol=1e-4, atol=1e-5)
+        names = ["dice_best_dice.npz"]
+    for name in names:
+        with np.load(os.path.join(d1, name)) as z1, np.load(os.path.join(d2, name)) as z2:
+            assert sorted(z1.keys()) == sorted(z2.keys())
+            for k in z1:
+                np.testing.assert_allclose(z2[k], z1[k], rtol=1e-4, atol=1e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("entry", ["Trainer", "load_experiment", "InferenceEngine.from_logdir",
                                    "cli.train", "cli.test_quantitative",
-                                   "cli.test_predictions"])
+                                   "cli.test_predictions", "cli.test_quantitative --mesh",
+                                   "cli.test_predictions --mesh", "cli.generate_samples",
+                                   "cli.sample_construction", "cli.makegif_samples"])
 def test_entry_points_take_the_card_and_raise_without_one(trained, entry):
     """Without a card every entry point of the new path raises unless it is
     asked for the CPU (on a machine with a card there is nothing to show)."""
@@ -121,6 +179,13 @@ def test_entry_points_take_the_card_and_raise_without_one(trained, entry):
         "cli.train": lambda: train_main([path, "--num-iter", "4", "--log-dir", log_dir]),
         "cli.test_quantitative": lambda: quant_main([log_dir, "--samples", "2"]),
         "cli.test_predictions": lambda: pred_main([log_dir, "--samples", "2"]),
+        "cli.test_quantitative --mesh": lambda: quant_main([log_dir, "--samples", "2",
+                                                            "--mesh", "2"]),
+        "cli.test_predictions --mesh": lambda: pred_main([log_dir, "--samples", "2",
+                                                          "--mesh", "2"]),
+        "cli.generate_samples": lambda: generate_samples.main([log_dir, "--samples", "2"]),
+        "cli.sample_construction": lambda: sample_construction.main([log_dir]),
+        "cli.makegif_samples": lambda: makegif_samples.main([log_dir, "--samples", "2"]),
     }
     before = sorted(os.listdir(log_dir))
     with pytest.raises(RuntimeError, match="no CUDA card"):

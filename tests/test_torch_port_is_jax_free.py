@@ -41,7 +41,9 @@ dice, ged, sncc, elbo = make_validation_fn(state.model, cfg)(
     torch.randn(2, 32, 32, 1), torch.randint(0, 2, (2, 4, 32, 32)), torch.randint(0, 2, (2, 32, 32)), g)
 assert dice.shape == (2, 2) and torch.isfinite(ged).all() and torch.isfinite(elbo)
 with tempfile.TemporaryDirectory() as d:
-    CheckpointManager(d, async_writes=True).save(host_snapshot(state, g), "best_ged")
+    writer = CheckpointManager(d, async_writes=True)
+    writer.save(host_snapshot(state, g), "best_ged")
+    writer.close()  # the async write has published before the restore reads it
     fresh = create_train_state(cfg, device="cpu", seed=1)
     _, step = CheckpointManager(d).restore(fresh, "best_ged")
     assert step == 1 and all(torch.equal(a, b) for a, b in
