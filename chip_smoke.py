@@ -115,7 +115,28 @@ Phases, each fatal on failure:
      compute on the card against the CPU in f64 with the same noise, its ms
      per image on the card, and each CLI end to end (files read back) where
      matplotlib / PIL are installed, which the phase decides and prints
-     before it starts any.
+     before it starts any;
+ 18. the LIDC data path at full width: a fake pickle of Stefan Knegt's LIDC
+     crops' structure (LIDC_PATIENTS patients x LIDC_LESIONS lesions,
+     128x128 f64 images, 4 annotator discs), read by the chunked reader and
+     split by patient in memory (split_lidc; the phase does not need h5py,
+     and prints whether it is importable), the split held to prepare_data's
+     HDF5 contract; the registry's `phiseg_7_5` itself through the Trainer on
+     LIDCData.from_splits, VAL_ITERS steps validating every VAL_FREQ, then
+     `probunet` and `detunet` LIDC_FAMILY_ITERS steps each: losses finite,
+     parameters moved, the f64 batches reaching the model as f32 on the card
+     computed in the config's dtype, K1 once a step plus 2 + the ELBO draws
+     a validation, K2 once a step, best_* checkpoints, median step time, peak
+     memory, each validation's seconds and metrics; HOST_AUG_STEPS phiseg_7_5
+     steps fed by numpy/scipy augmentation on the host (its ms per batch, the
+     step time, K1 and K2 once a step); the 100-sample inference of the
+     trained PHiSeg on LIDC_SAMPLE_IMAGES test images through
+     InferenceEngine: ms/image and peak memory;
+ 19. a checkpoint written by phiseg_tpu: the committed fixture
+     tests/data/jax_checkpoint_small restored on the card by load_experiment,
+     its sample probabilities and eval losses from the stored noise against
+     the JAX package's within JAX_CKPT_TOL (f32, TF32 off), then
+     test_quantitative through its CLI on that log dir (npz contract).
 
 Spawned ranks have a join timeout; a rank that fails or hangs fails the run.
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -1123,13 +1144,16 @@ def _validation_k1(cfg, n_images: int) -> int:
     return 2 + -(-n_images // 32) * cfg.validation_elbo_samples
 
 
-def _train_with_validations(cfg_path: str, log_dir: str, nan_ok=()):
-    """VAL_ITERS steps through the train CLI, validating every VAL_FREQ:
+def _train_with_validations(cfg_path: str, log_dir: str, run=None, iters: int = VAL_ITERS):
+    """`iters` steps (VAL_ITERS) through the train CLI, or through `run()`,
+    which returns the Trainer it trained, validating every VAL_FREQ:
     the seconds, peak device memory and kernel launches of each validation,
     and the peak of the steps before it, recorded; the steps, validations,
-    finite values (but the keys in nan_ok) and the best_* checkpoints of
-    every metric that was finite once checked. Returns (trainer, launches,
-    validation records, wall seconds, metrics.jsonl records)."""
+    finite values and the best_* checkpoints of every metric that was finite
+    once checked. S_NCC may be undefined (NaN) only on images where
+    _undefined_ncc_explained finds the metric's 0/0 in the validation's own
+    draws. Returns (trainer, launches, validation records, wall seconds,
+    metrics.jsonl records)."""
     import torch
 
     from phiseg_tpu_torch.cli.train import main as train_main
@@ -1145,14 +1169,30 @@ def _train_with_validations(cfg_path: str, log_dir: str, nan_ok=()):
         steps_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
         before = dict(frce.LAUNCHES)
+        undefined = []  # the batches whose S_NCC came out NaN, with their generator state
+        validate = self.validate_fn
+
+        def watched(x, ann, s_sel, gen, *a, **k):
+            state = gen.get_state()
+            out = validate(x, ann, s_sel, gen, *a, **k)
+            if not torch.isfinite(out[2]).all():
+                undefined.append((x, ann, gen.device, state, out[2]))
+            return out
+
+        self.validate_fn = watched
         t0 = time.perf_counter()
-        scalars = orig(self, data, step, **kw)
-        torch.cuda.synchronize()
+        try:
+            scalars = orig(self, data, step, **kw)
+            torch.cuda.synchronize()
+        finally:
+            self.validate_fn = validate
         records.append({"step": step, "seconds": time.perf_counter() - t0,
                         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                         "steps_peak_gib": steps_peak,
                         "launches": {k: frce.LAUNCHES[k] - before[k] for k in before},
-                        "scalars": scalars})
+                        "scalars": scalars,
+                        "ncc_undefined": _undefined_ncc_explained(self.state.model, self.cfg,
+                                                                  undefined)})
         torch.cuda.reset_peak_memory_stats()  # the next record's steps_peak_gib: steps only
         return scalars
 
@@ -1160,7 +1200,8 @@ def _train_with_validations(cfg_path: str, log_dir: str, nan_ok=()):
     try:
         frce.reset_launch_counts()
         t0 = time.perf_counter()
-        trainer = train_main([cfg_path, "--log-dir", log_dir, "--num-iter", str(VAL_ITERS)])
+        trainer = run() if run is not None else \
+            train_main([cfg_path, "--log-dir", log_dir, "--num-iter", str(iters)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(frce.LAUNCHES)
@@ -1170,13 +1211,14 @@ def _train_with_validations(cfg_path: str, log_dir: str, nan_ok=()):
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     val_recs = [r for r in recs if "validation_GED" in r]
-    if [r["step"] for r in recs if "batch_total_loss" in r] != list(range(VAL_ITERS)):
+    if [r["step"] for r in recs if "batch_total_loss" in r] != list(range(iters)):
         fail(f"metrics.jsonl holds train steps {[r['step'] for r in recs]}")
-    if [r["step"] for r in val_recs] != [VAL_FREQ, 2 * VAL_FREQ]:
+    if [r["step"] for r in val_recs] != list(range(VAL_FREQ, iters, VAL_FREQ)):
         fail(f"validations at steps {[r['step'] for r in val_recs]}")
+    explained = {r["step"] for r in records if r["ncc_undefined"]}
     for r in recs:
-        bad = [k for k, v in r.items()
-               if isinstance(v, float) and not math.isfinite(v) and k not in nan_ok]
+        bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)
+               and not (k == "validation_NCC" and r["step"] in explained)]
         if bad:
             fail(f"non-finite values at step {r['step']}: {bad}")
     metric = {"dice": "validation_dice_mean_score", "loss": "validation_neg_elbo",
@@ -1184,7 +1226,7 @@ def _train_with_validations(cfg_path: str, log_dir: str, nan_ok=()):
     for tag in ["latest"] + [f"best_{m}" for m, k in metric.items()
                              if any(math.isfinite(r[k]) for r in val_recs)]:
         if not CheckpointManager(log_dir).has_checkpoint(tag):
-            fail(f"no {tag} checkpoint in {log_dir} after {VAL_ITERS} steps")
+            fail(f"no {tag} checkpoint in {log_dir} after {iters} steps")
     return trainer, launches, records, wall, recs
 
 
@@ -1197,7 +1239,8 @@ def _say_validations(records, per_val: int, what: str = "") -> None:
             f"{r['peak_gib']:.3f} GiB, K1 {r['launches']['fused_residual_ce_fwd']} K2 "
             f"{r['launches']['fused_residual_ce_bwd']}; GED^2 {sc['validation_GED']:.6g} "
             f"S_NCC {sc['validation_NCC']:.6g} Dice {sc['validation_dice_mean_score']:.6g} "
-            f"(fg {sc['validation_dice_lbl_1']:.6g}) -ELBO {sc['validation_neg_elbo']:.6g}")
+            f"(fg {sc['validation_dice_lbl_1']:.6g}) -ELBO {sc['validation_neg_elbo']:.6g}; "
+            f"S_NCC undefined (maps with std 0, drawn again) on {r['ncc_undefined']} images")
         if r["launches"]["fused_residual_ce_fwd"] != per_val or r["launches"]["fused_residual_ce_bwd"]:
             fail(f"one validation launched {r['launches']}, not K1 x {per_val}")
 
@@ -1555,6 +1598,25 @@ def phase_metrics(val):
     return k1_val_err
 
 
+def _quant_npz(log_dir: str, samples: int):
+    """test_quantitative's two files of best_ged in log_dir: their GED keys,
+    the number of images, and whether they keep the npz contract."""
+    import numpy as np
+
+    stem = f"{samples}_best_ged"
+    with np.load(os.path.join(log_dir, f"ged{stem}.npz")) as z:
+        keys, n = sorted(z.keys()), len(z["arr_0"])
+        ok = (keys == ["arr_0", "d_ss", "d_sy", "d_yy", "n_annotators", "n_samples"]
+              and all(z[k].shape == (n,) and np.isfinite(z[k]).all()
+                      for k in ("arr_0", "d_sy", "d_ss", "d_yy"))
+              and int(z["n_samples"]) == samples and int(z["n_annotators"]) == 4
+              and np.allclose(2 * z["d_sy"] - z["d_ss"] - z["d_yy"], z["arr_0"], atol=1e-5))
+    with np.load(os.path.join(log_dir, f"ncc{stem}.npz")) as z:
+        ok = ok and list(z.keys()) == ["arr_0"] and z["arr_0"].shape == (n,) and \
+            np.isfinite(z["arr_0"]).all()
+    return keys, n, ok
+
+
 def phase_quantitative(val):
     """test_quantitative on best_ged through its CLI: the npz contract."""
     import numpy as np
@@ -1573,17 +1635,7 @@ def phase_quantitative(val):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    stem = f"{QUANT_SAMPLES}_best_ged"
-    with np.load(os.path.join(log_dir, f"ged{stem}.npz")) as z:
-        keys, n = sorted(z.keys()), len(z["arr_0"])
-        ok = (keys == ["arr_0", "d_ss", "d_sy", "d_yy", "n_annotators", "n_samples"]
-              and all(z[k].shape == (n,) and np.isfinite(z[k]).all()
-                      for k in ("arr_0", "d_sy", "d_ss", "d_yy"))
-              and int(z["n_samples"]) == QUANT_SAMPLES and int(z["n_annotators"]) == 4
-              and np.allclose(2 * z["d_sy"] - z["d_ss"] - z["d_yy"], z["arr_0"], atol=1e-5))
-    with np.load(os.path.join(log_dir, f"ncc{stem}.npz")) as z:
-        ok = ok and list(z.keys()) == ["arr_0"] and z["arr_0"].shape == (n,) and \
-            np.isfinite(z["arr_0"]).all()
+    keys, n, ok = _quant_npz(log_dir, QUANT_SAMPLES)
     say(f"test_quantitative best_ged, {QUANT_SAMPLES} samples, batch {QUANT_BATCH}: {n} test "
         f"images, keys {keys}; GED^2 {ged.mean():.6g} +- {ged.std():.6g}, S_NCC "
         f"{ncc.mean():.6g} +- {ncc.std():.6g}; {wall:.2f} s = {wall / n:.4f} s/image of wall "
@@ -1603,6 +1655,50 @@ def phase_quantitative(val):
     return {"s_per_image": wall / n, "device_ms_per_image": dev / QUANT_BATCH, "peak_gib": peak}
 
 
+def _ncc_undefined_and_no_spread(probs, gt):
+    """For (B,S,H,W,C) probabilities and (B,M,H,W,C) one-hot annotations:
+    the images whose S_NCC is undefined, those where one of its two maps
+    (E_ss, or an annotator's E_sy) has a population std of 0, the metric's
+    own maps and std, and those where such a map is exactly constant."""
+    import torch
+
+    from phiseg_tpu_torch.metrics import population_std, variance_ncc_dist, variance_ncc_maps
+
+    undef = ~torch.isfinite(variance_ncc_dist(probs, gt))
+    e_ss, e_sy = variance_ncc_maps(probs, gt)
+    maps = torch.cat([e_ss.unsqueeze(1), e_sy], 1).flatten(2)  # (B,1+M,HW)
+    no_spread = (population_std(maps).squeeze(-1) == 0).any(-1)
+    constant = (maps.amax(-1) == maps.amin(-1)).any(-1)
+    return undef, no_spread, constant
+
+
+def _undefined_ncc_explained(model, cfg, batches) -> int:
+    """Each validation batch whose S_NCC came out undefined (NaN), drawn
+    again from the generator state the validation drew it with, by the
+    validation's own sampler on the model it validated: undefined on the
+    same images, and on exactly those where a map of the metric has a
+    population std of 0 (0/0, as in the JAX package); else the NaN is a
+    fault. Returns the number of undefined images."""
+    import torch
+
+    from phiseg_tpu_torch.engine.train import make_sample_fn
+    from phiseg_tpu_torch.nn.losses import one_hot
+
+    n = 0
+    for x, ann, device, state, sncc in batches:
+        g = torch.Generator(device=device)
+        g.set_state(state)
+        probs = make_sample_fn(model, cfg.validation_samples)(x, g).transpose(0, 1)
+        undef, no_spread, _ = _ncc_undefined_and_no_spread(probs, one_hot(ann, cfg.nlabels))
+        if not torch.equal(undef, ~torch.isfinite(sncc)) or not torch.equal(undef, no_spread):
+            fail(f"{cfg.experiment_name}: S_NCC undefined on images "
+                 f"{(~torch.isfinite(sncc)).nonzero().flatten().tolist()} of a validation batch; "
+                 f"drawn again undefined on {undef.nonzero().flatten().tolist()}, a map with std "
+                 f"0 on {no_spread.nonzero().flatten().tolist()}")
+        n += int(undef.sum())
+    return n
+
+
 def _undefined_ncc_is_no_spread(model, cfg, data) -> None:
     """S_NCC on the validation images, as validation draws them, is
     undefined (0/0) on exactly the images where one of its two maps (E_ss,
@@ -1611,19 +1707,13 @@ def _undefined_ncc_is_no_spread(model, cfg, data) -> None:
     import torch
 
     from phiseg_tpu_torch.engine.train import make_sample_fn
-    from phiseg_tpu_torch.metrics import population_std, variance_ncc_dist, variance_ncc_maps
     from phiseg_tpu_torch.nn.losses import one_hot
 
     n = min(32, data.validation.images.shape[0])
     x, ann, _ = (t.cuda() for t in _val_images(data, n))
     probs = make_sample_fn(model, cfg.validation_samples)(x, torch.Generator(device="cuda")
                                                           ).transpose(0, 1)  # (B,S,H,W,C)
-    gt = one_hot(ann, cfg.nlabels)
-    undef = ~torch.isfinite(variance_ncc_dist(probs, gt))
-    e_ss, e_sy = variance_ncc_maps(probs, gt)
-    maps = torch.cat([e_ss.unsqueeze(1), e_sy], 1).flatten(2)  # (B,1+M,HW)
-    no_spread = (population_std(maps).squeeze(-1) == 0).any(-1)
-    constant = (maps.amax(-1) == maps.amin(-1)).any(-1)
+    undef, no_spread, constant = _ncc_undefined_and_no_spread(probs, one_hot(ann, cfg.nlabels))
     batch_bn = copy.deepcopy(model).train()  # the batch's own BN statistics, on a copy
     with torch.no_grad():
         logits = batch_bn(x, one_hot(ann[:, 0], cfg.nlabels)).s_out_list[0]
@@ -1667,15 +1757,16 @@ def phase_families():
             f"zdim0={cfg.zdim0} {cfg.image_size} batch {cfg.batch_size} {cfg.compute_dtype} "
             f"norm={cfg.norm} {cfg.optimizer} annotators {cfg.annotator_range} KL weight "
             f"{cfg.kl_divergence_loss_weight}; {VAL_ITERS} steps validating every {VAL_FREQ}")
-        # S_NCC of one deterministic draw is undefined (0/0) on an image
-        # whose entropy map E_ss does not spread, as where every softmax of a
-        # young model in eval mode saturates to exactly 0 and 1; the JAX
-        # package and the reference give NaN there too. Checked below, and
-        # the saturation held against the CPU's.
-        nan_ok = ("validation_NCC",) if cfg.model_family == "det_unet" else ()
+        # S_NCC is undefined (0/0) on an image whose map E_ss (or an E_sy)
+        # does not spread: where every softmax of a young model in eval mode
+        # saturates to exactly 0 and 1, its draws are alike (one draw always
+        # for the DetUNet, often for a young ProbUNet, whose samples are
+        # 99.4% saturated at step 20). The JAX package and the reference give
+        # NaN there too. Each validation's NaN is explained on its own draws;
+        # below, on fresh ones, with the saturation held against the CPU's.
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        trainer, launches, records, wall, recs = _train_with_validations(cfg_path, log_dir, nan_ok)
+        trainer, launches, records, wall, recs = _train_with_validations(cfg_path, log_dir)
         peak = max(r["steps_peak_gib"] for r in records)
         _say_validations(records, per_val, f"{name} ")
 
@@ -1725,7 +1816,7 @@ def phase_families():
             fail(f"{name}: the kernels do not read its one level in place")
         k1_err = _k1_on_the_validation_path(cfg, trainer.state.model, data)
         _validation_card_vs_cpu(cfg, trained, data)
-        if nan_ok:
+        if cfg.model_family == "det_unet" or any(r["ncc_undefined"] for r in records):
             _undefined_ncc_is_no_spread(trainer.state.model, cfg, data)
         out[name] = {"log_dir": log_dir, "launches": launches, "k1_val_err": k1_err,
                      "val_launches": records[0]["launches"], "layout": layout}
@@ -2334,6 +2425,295 @@ def phase_figures(log_dirs):
     return res, have
 
 
+LIDC_PATIENTS, LIDC_LESIONS = 40, 3  # phase 18: the fake pickle's patients and lesions each
+LIDC_FAMILY_ITERS = 11  # phase 18: probunet / detunet steps, one validation at VAL_FREQ
+HOST_AUG_STEPS = 8      # phase 18: phiseg_7_5 steps fed by host augmentation
+LIDC_SAMPLE_IMAGES = 8  # phase 18: LIDC test images of the 100-sample inference
+# phase 19: card (K1, cuDNN, TF32 off) vs the JAX package's CPU run stored in
+# the fixture, both f32: the CPU parity tests hold 1e-4 (about twenty f32
+# convolutions summed in another order); stated before the first chip run
+JAX_CKPT_TOL = 1e-4
+JAX_FIXTURE = os.path.join("tests", "data", "jax_checkpoint_small")
+
+
+def _fake_lidc_pickle(path: str, hw: int = 128, seed: int = 0) -> dict:
+    """A pickle of the structure of Stefan Knegt's LIDC crops: per lesion an
+    f64 image in [0, 1), 4 annotator masks (discs about one centre whose
+    radius differs by annotator, a lesion the loss can fit) and the patient's
+    series_uid; LIDC_PATIENTS patients with LIDC_LESIONS lesions each."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:hw, :hw]
+    data, k = {}, 0
+    for p in range(LIDC_PATIENTS):
+        for _ in range(LIDC_LESIONS):
+            cy, cx = rng.uniform(0.3 * hw, 0.7 * hw, 2)
+            r = rng.uniform(4, hw / 8)
+            d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+            masks = [(d2 < (r * (0.7 + 0.2 * a)) ** 2).astype(np.uint8) for a in range(4)]
+            image = 0.35 * rng.rand(hw, hw) + 0.5 * np.exp(-d2 / (2 * r * r))
+            data[k] = {"image": np.clip(image, 0.0, 0.999), "masks": masks,
+                       "series_uid": f"1.3.6.1.4.1.14519.5.2.1.{p:05d}"}
+            k += 1
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    return data
+
+
+def _check_lidc_splits(splits, raw, hw: int = 128) -> None:
+    """The HDF5 contract of tests/test_data.py:283-320 on the in-memory
+    split: shapes, dtypes, the -0.5 offset, every lesion once, patients
+    disjoint across the splits."""
+    import numpy as np
+
+    uids = {k: set(v["uids"].tolist()) for k, v in splits.items()}
+    ok = (sum(v["images"].shape[0] for v in splits.values()) == len(raw)
+          and all(v["images"].shape[1:] == (hw, hw) and v["images"].dtype == np.float64
+                  and v["labels"].shape[1:] == (hw, hw, 4) and v["labels"].dtype == np.uint8
+                  and v["uids"].dtype == np.int64 and -0.5 <= v["images"].min()
+                  and v["images"].max() < 0.5 for v in splits.values())
+          and not (uids["train"] & uids["val"]) and not (uids["train"] & uids["test"])
+          and not (uids["val"] & uids["test"])
+          and sum(map(len, uids.values())) == LIDC_PATIENTS)
+    say("lidc split: " + ", ".join(f"{k} {v['images'].shape[0]} images of {len(uids[k])} "
+                                    f"patients" for k, v in splits.items())
+        + f"; images f64 in [{min(v['images'].min() for v in splits.values()):.4f}, "
+        f"{max(v['images'].max() for v in splits.values()):.4f}], labels u8 (N,{hw},{hw},4), "
+        f"uids i64; patients disjoint: {ok}")
+    if not ok:
+        fail("the LIDC split breaks the contract of prepare_data's HDF5")
+
+
+def _lidc_run(name: str, splits, root: str, iters: int, host_augment: bool = False):
+    """The registry's `name` trained `iters` steps on LIDCData.from_splits
+    through the Trainer, validating every VAL_FREQ; with host augmentation
+    the on-device one is off. Checks losses, moved
+    parameters and launches (K1 once a step plus once per eval-loss call and
+    ELBO draw of each validation, K2 once a step); prints time and memory.
+    Returns (trainer, launches, median step ms)."""
+    import torch
+
+    from phiseg_tpu_torch.data.lidc import LIDCData
+    from phiseg_tpu_torch.engine.train import build_model
+    from phiseg_tpu_torch.engine.trainer import Trainer
+    from phiseg_tpu_torch.experiments import get_experiment
+    from phiseg_tpu_torch.nn.layers import ConvBlock
+
+    cfg = get_experiment(name).replace(validation_frequency=VAL_FREQ,
+                                       tensorboard_update_frequency=1)
+    if host_augment:
+        cfg = cfg.replace(augment_on_device=False)
+    log_dir = os.path.join(root, name + ("_host_augment" if host_augment else ""))
+    data = LIDCData.from_splits(cfg, splits, host_augment=host_augment)
+    n_val = min(data.validation.images.shape[0], int(cfg.num_validation_images))
+    per_val = _validation_k1(cfg, n_val)
+    n_vals = len(range(VAL_FREQ, iters, VAL_FREQ))
+    say(f"lidc: {name} ({cfg.model_family}, data {cfg.data_identifier}) "
+        f"R={cfg.resolution_levels} L={cfg.latent_levels} n0={cfg.n0} {cfg.image_size} batch "
+        f"{cfg.batch_size} {cfg.compute_dtype} norm={cfg.norm} {cfg.optimizer} annotators "
+        f"{cfg.annotator_range}; {iters} steps, augmentation "
+        f"{'on the host (numpy/scipy)' if host_augment else 'on the card'}, {n_vals} "
+        f"validations over {n_val} images")
+
+    seen, computed = set(), set()  # the model's input (dtype, device); its blocks' dtype
+
+    def train():
+        trainer = Trainer(cfg, log_dir=log_dir)
+        model = trainer.state.model
+        block = next(m for m in model.modules() if isinstance(m, ConvBlock))
+        hooks = [model.register_forward_pre_hook(
+                     lambda m, args: seen.add((args[0].dtype, args[0].device.type))),
+                 block.register_forward_hook(lambda m, args, out: computed.add(out.dtype))]
+        try:
+            trainer.train(data, iters)
+        finally:
+            for h in hooks:
+                h.remove()
+        return trainer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, launches, records, wall, recs = _train_with_validations(
+        None, log_dir, run=train, iters=iters)
+    peak = max([r["steps_peak_gib"] for r in records]
+               or [torch.cuda.max_memory_allocated() / 2 ** 30])
+    _say_validations(records, per_val, f"lidc {name} ")
+    train_recs = [r for r in recs if "batch_total_loss" in r]
+    step_ms = statistics.median(1000.0 * cfg.batch_size / r["images_per_sec"]
+                                for r in train_recs[2:])
+    init = build_model(cfg, device="cpu", seed=cfg.seed).state_dict()
+    trained = trainer.state.model.state_dict()
+    params = [n for n, _ in trainer.state.model.named_parameters()]
+    unchanged = [n for n in params if torch.equal(init[n], trained[n].cpu())]
+    nonfinite = [n for n, t in trained.items() if not torch.isfinite(t).all()]
+    want_k1 = iters + n_vals * per_val
+    say(f"lidc {name}: total loss {train_recs[0]['batch_total_loss']:.6g} -> "
+        f"{train_recs[-1]['batch_total_loss']:.6g}; {len(params)} parameter tensors, unchanged "
+        f"{len(unchanged)}, non-finite {len(nonfinite)}; K1 {launches['fused_residual_ce_fwd']} "
+        f"= {iters} steps + {n_vals} x {per_val}, K2 {launches['fused_residual_ce_bwd']}; the "
+        f"model's input (dtype, device) {sorted(map(str, seen))}, its blocks compute in "
+        f"{sorted(map(str, computed))}")
+    say(f"lidc {name} time: median step {step_ms:.3f} ms over steps 2..{iters - 1} (each step "
+        f"synchronised for its log line); {wall:.2f} s of wall time; peak device memory of the "
+        f"train steps {peak:.3f} GiB")
+    if unchanged or nonfinite:
+        fail(f"lidc {name} parameters unchanged: {unchanged[:5]}; non-finite: {nonfinite[:5]}")
+    if launches["fused_residual_ce_fwd"] != want_k1 or \
+            launches["fused_residual_ce_bwd"] != iters or launches["fused_residual_ce_dp"]:
+        fail(f"lidc {name} launches {launches}, not K1 x {want_k1} and K2 x {iters}")
+    if seen != {(torch.float32, "cuda")} or computed != {cfg.dtype}:
+        fail(f"lidc {name}: the f64 LIDC batches reach the model as {seen} and compute in "
+             f"{computed}, not f32 on the card computed in {cfg.dtype}")
+    return trainer, launches, step_ms
+
+
+def phase_lidc():
+    """The registry's LIDC experiments at full width on a fake LIDC pickle:
+    phiseg_7_5 with two validations, probunet and detunet with one, a few
+    phiseg_7_5 steps with host augmentation, and the 100-sample inference of
+    the trained PHiSeg through InferenceEngine. Returns the launches of
+    each run."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data.augment_host import augment_batch_host
+    from phiseg_tpu_torch.data.batch_provider import canonicalise_aug_options
+    from phiseg_tpu_torch.data.lidc import _read_pickle_chunked, split_lidc
+    from phiseg_tpu_torch.engine.inference import InferenceEngine
+    from phiseg_tpu_torch.experiments import get_experiment
+
+    say(f"lidc: h5py importable on this machine: {importlib.util.find_spec('h5py') is not None} "
+        "(the phase builds the dataset in memory, LIDCData.from_splits, either way)")
+    root = os.path.join(OUT_DIR, "lidc")
+    os.makedirs(root)
+    pkl = os.path.join(root, "data_lidc.pickle")
+    t0 = time.perf_counter()
+    raw = _fake_lidc_pickle(pkl)
+    t1 = time.perf_counter()
+    splits = split_lidc(_read_pickle_chunked(pkl))
+    t2 = time.perf_counter()
+    say(f"lidc pickle: {len(raw)} lesions of {LIDC_PATIENTS} patients, "
+        f"{os.path.getsize(pkl) / 2 ** 20:.1f} MiB, written in {t1 - t0:.2f} s; chunked read "
+        f"and patient split {t2 - t1:.2f} s")
+    _check_lidc_splits(splits, raw)
+
+    out = {}
+    trainer, out["phiseg_7_5"], step_ms = _lidc_run("phiseg_7_5", splits, root, VAL_ITERS)
+    log_dir = trainer.log_dir
+    del trainer
+    for name in ("probunet", "detunet"):
+        t, out[name], _ = _lidc_run(name, splits, root, LIDC_FAMILY_ITERS)
+        del t
+        torch.cuda.empty_cache()
+
+    # host augmentation: its ms per batch on this machine's CPU, then steps fed by it
+    cfg = get_experiment("phiseg_7_5")
+    opts = canonicalise_aug_options(cfg.augmentation_options)
+    x = splits["train"]["images"][:cfg.batch_size]
+    y = splits["train"]["labels"][:cfg.batch_size, ..., 0]
+    rng = np.random.RandomState(0)
+    aug_ms = []
+    for _ in range(5):
+        a0 = time.perf_counter()
+        augment_batch_host(x, y, opts, rng)
+        aug_ms.append(1000.0 * (time.perf_counter() - a0))
+    t, out["phiseg_7_5_host_augment"], host_step_ms = _lidc_run(
+        "phiseg_7_5", splits, root, HOST_AUG_STEPS, host_augment=True)
+    del t
+    say(f"lidc host augmentation ({opts}): median {statistics.median(aug_ms):.3f} ms per batch "
+        f"of {cfg.batch_size} 128x128 images on this machine's CPU (5 calls); median step "
+        f"{host_step_ms:.3f} ms fed by it vs {step_ms:.3f} ms with the on-device augmentation")
+
+    # 100-sample inference of the trained PHiSeg on LIDC test images
+    engine = InferenceEngine.from_logdir(log_dir, "best_ged")
+    # on the card already: a copy from pageable host memory would wait for the device
+    xt = torch.from_numpy(
+        splits["test"]["images"][:LIDC_SAMPLE_IMAGES].astype(np.float32)[..., None]).cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    probs = engine.sample_probs(xt, SAMPLES, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if probs.shape != (SAMPLES, xt.shape[0], 128, 128, 2) or \
+            not torch.isfinite(probs).all() or \
+            not torch.allclose(probs.sum(-1), torch.ones((), device="cuda"), atol=1e-5):
+        fail(f"lidc inference: probabilities {tuple(probs.shape)}, finite and summing to 1?")
+    dev = device_ms(lambda: engine.sample_probs(xt, SAMPLES, g), iters=1, warmup=1,
+                    sleep_cycles=400_000_000)
+    call = cuda_ms(lambda: engine.sample_probs(xt, SAMPLES, g), iters=3, warmup=0)
+    say(f"lidc inference: {SAMPLES} samples of phiseg_7_5 (best_ged, {VAL_ITERS} steps) on "
+        f"{LIDC_SAMPLE_IMAGES} LIDC test images through InferenceEngine.sample_probs: device "
+        f"{dev:.3f} ms = {dev / LIDC_SAMPLE_IMAGES:.3f} ms/image (CUDA events, host kept ahead, "
+        f"1 call); per call incl. host issue {call:.3f} ms = {call / LIDC_SAMPLE_IMAGES:.3f} "
+        f"ms/image (median of 3); peak device memory {peak:.3f} GiB")
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_jax_checkpoint():
+    """A checkpoint that phiseg_tpu wrote, read on the card: the committed
+    fixture's sample probabilities and eval losses from its stored noise
+    against the JAX package's (f32, TF32 off), then test_quantitative
+    through its CLI on the log dir."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.cli.test_quantitative import main as quant_main
+    from phiseg_tpu_torch.engine.loading import load_experiment
+    from phiseg_tpu_torch.engine.train import make_eval_loss_fn, make_sample_fn
+
+    log_dir = os.path.join(OUT_DIR, "jax_checkpoint")
+    shutil.copytree(os.path.join(ROOT, JAX_FIXTURE), log_dir)
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on")
+    cfg, model, state, step = load_experiment(log_dir, "best_ged", device="cuda")
+    with np.load(os.path.join(log_dir, "expected.npz")) as f:
+        exp = dict(f)
+
+    def levels(prefix):
+        n = sum(k.startswith(prefix) for k in exp)
+        return [torch.from_numpy(exp[f"{prefix}{i}"]).cuda() for i in range(n)]
+
+    x = torch.from_numpy(exp["x"]).cuda()
+    probs = make_sample_fn(model, exp["probs"].shape[0])(x, eps=levels("eps_prior_"))
+    gap = float(np.abs(probs.cpu().numpy() - exp["probs"]).max())
+    losses = make_eval_loss_fn(model, cfg)(x, torch.from_numpy(exp["s"]).cuda(),
+                                           eps=levels("eps_post_"))
+    # |card - JAX| per loss against atol + rtol |JAX|, both JAX_CKPT_TOL, as the CPU tests
+    # hold it (a KL term of a young model can sit near 0)
+    loss_gap = max(abs(float(v) - float(exp[f"loss_{k}"])) / (1 + abs(float(exp[f"loss_{k}"])))
+                   for k, v in losses.items())
+    keys_ok = sorted(losses) == sorted(k[len("loss_"):] for k in exp if k.startswith("loss_"))
+    n_adam = len(state.optimizer.state)
+    say(f"jax checkpoint: {JAX_FIXTURE} (phiseg_tpu, {cfg.experiment_name}: R="
+        f"{cfg.resolution_levels} L={cfg.latent_levels} n0={cfg.n0} {cfg.image_size} "
+        f"{cfg.compute_dtype}) restored at step {step} on the card with Adam state for "
+        f"{n_adam} parameters; sample probabilities {tuple(probs.shape)} vs the JAX package's "
+        f"(stored noise, f32, TF32 off): max abs gap {gap:.3e}; eval losses max "
+        f"|gap| / (1 + |JAX|) {loss_gap:.3e} (tolerance {JAX_CKPT_TOL} for both)")
+    if not keys_ok or gap > JAX_CKPT_TOL or loss_gap > JAX_CKPT_TOL or not n_adam:
+        fail("the phiseg_tpu checkpoint does not reproduce the JAX package's outputs on the card")
+    del model, state
+
+    t0 = time.perf_counter()
+    quant_main([log_dir, "--samples", str(QUANT_SAMPLES), "--batch", "4"])
+    torch.cuda.synchronize()
+    keys, n, ok = _quant_npz(log_dir, QUANT_SAMPLES)
+    say(f"jax checkpoint: test_quantitative on its log dir, {QUANT_SAMPLES} samples: {n} "
+        f"synthetic test images, keys {keys}, contract kept: {ok}; "
+        f"{time.perf_counter() - t0:.2f} s of wall time")
+    if n != cfg.synth_n_test or not ok:
+        fail("test_quantitative's files on the phiseg_tpu log dir break the npz contract")
+    return gap
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2354,6 +2734,8 @@ def main() -> None:
     phase_eval_mesh(val["log_dir"])
     phase_figures({EXPERIMENT: val["log_dir"],
                    FAMILY_EXPERIMENTS[0]: fam[FAMILY_EXPERIMENTS[0]]["log_dir"]})
+    lidc = phase_lidc()
+    phase_jax_checkpoint()
 
     import torch
 
@@ -2391,7 +2773,9 @@ def main() -> None:
                                 for n, r in norms.items()},
              "launches_elastic": elastic["launches"][f"fused_residual_ce_{k}"],
              "launches_profiled_run": prof["launches"][f"fused_residual_ce_{k}"],
-             "launches_in_profiled_window_trace": prof["k1" if k == "fwd" else "k2"]})
+             "launches_in_profiled_window_trace": prof["k1" if k == "fwd" else "k2"],
+             # phase 18: the registry's LIDC experiments, per run
+             "launches_lidc": {n: r[f"fused_residual_ce_{k}"] for n, r in lidc.items()}})
     # K3 on one rank: K1 over its shard (the all_reduce moves L floats)
     b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels // DP_WORLD, cfg.nlabels, False))
     kernels.append(
@@ -2399,7 +2783,8 @@ def main() -> None:
          "source": DP_SOURCE, "replaces": TPU_KERNELS["dp"],
          "launches": dp_outs[0]["launches"]["fused_residual_ce_dp"], "max_abs_err": k3_err,
          "ms": dp_outs[0]["k3_ms"], "plain_ms": dp_outs[0]["k3_plain_ms"],
-         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+         "launches_lidc": {n: r["fused_residual_ce_dp"] for n, r in lidc.items()}})
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,10 +16,26 @@ buffer of the same scope path:
   batch_stats .../brn/{mean,var,steps} -> .../brn.{running_mean,running_var,steps}
   .../in_scale, .../in_offset -> the same names on the block (instance
                              norm's parameters sit in the ConvBlock's scope)
+  .../proj/{kernel,bias}  -> .../proj.{weight,bias}   (ResidualUnit's 1x1 shortcut)
+  .../Dense_0/kernel (in, out) -> .../Dense_0.weight (out, in)   (Dense)
+  .../Dense_0/bias        -> .../Dense_0.bias
 
 It raises on a Flax leaf that maps to nothing in the model, on a model
 entry that no Flax leaf fills, and on two leaves that fill one entry. Each
 leaf keeps the dtype of the entry it fills (the renorm step count is int32).
+
+`flax_train_state_to_port` fills the port's TrainState from a whole
+phiseg_tpu TrainState tree (`step`, `params`, `batch_stats`, `opt_state`;
+phiseg_tpu/engine/train.py:70-99), as engine/msgpack_reader.py decodes it
+from a checkpoint: the weights as above, and optax's state:
+
+  adam      opt_state["0"] = {count, mu, nu}  -> torch Adam's step, exp_avg,
+            exp_avg_sq of each parameter (mu and nu transposed as the params)
+  momentum  opt_state["0"] = {trace}          -> torch SGD's momentum_buffer
+            (with dampening 0 the same recurrence, Nesterov in both)
+  sgd       opt_state["0"] = {}               -> no state
+  opt_state["1"] = {count}: the learning-rate schedule's step, which the
+            port reads from TrainState.step; it must equal `step`.
 """
 
 from __future__ import annotations
@@ -46,6 +62,10 @@ _LEAF_NAMES = {
     ("batch_stats", "brn", "mean"): "brn.running_mean",
     ("batch_stats", "brn", "var"): "brn.running_var",
     ("batch_stats", "brn", "steps"): "brn.steps",
+    ("params", "proj", "kernel"): "proj.weight",
+    ("params", "proj", "bias"): "proj.bias",
+    ("params", "Dense_0", "kernel"): "Dense_0.weight",
+    ("params", "Dense_0", "bias"): "Dense_0.bias",
 }
 # leaves that sit directly in a ConvBlock's scope (instance norm)
 _BLOCK_LEAVES = {("params", "in_scale"), ("params", "in_offset")}
@@ -59,31 +79,99 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (str(k),), np.asarray(v)
 
 
+def _convert_collection(tree: Mapping, collection: str,
+                        want: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The entries of `want` that the Flax leaves of `tree` (one collection)
+    fill, converted to their layout and dtype."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(tree):
+        if (collection, path[-1]) in _BLOCK_LEAVES:
+            name = ".".join(path)
+        elif len(path) >= 2 and (collection, path[-2], path[-1]) in _LEAF_NAMES:
+            name = ".".join(path[:-2] + (_LEAF_NAMES[(collection, path[-2], path[-1])],))
+        else:
+            raise KeyError(f"unmapped Flax leaf {collection}/{'/'.join(path)}")
+        if name not in want:
+            raise KeyError(f"Flax leaf {collection}/{'/'.join(path)} -> {name!r}, "
+                           "which the model does not have")
+        if arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        elif arr.ndim == 2:
+            arr = arr.T  # Dense (in, out) -> Linear (out, in)
+        if name in out:
+            raise KeyError(f"two Flax leaves fill {name!r}")
+        t = torch.from_numpy(np.array(arr, order="C")).to(want[name].dtype)
+        if t.shape != want[name].shape:
+            raise ValueError(f"{name}: Flax shape {tuple(t.shape)} vs model "
+                             f"{tuple(want[name].shape)}")
+        out[name] = t
+    return out
+
+
+def _require_all(got: Mapping, want, what: str) -> None:
+    missing = sorted(set(want) - set(got))
+    if missing:
+        raise KeyError(f"{what} with no Flax leaf: {missing}")
+
+
 def flax_to_state_dict(variables: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
     """Convert a Flax variables tree (numpy leaves) into `model`'s state_dict."""
     want = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        for path, arr in _leaves(variables.get(collection, {})):
-            if (collection, path[-1]) in _BLOCK_LEAVES:
-                name = ".".join(path)
-            elif len(path) >= 2 and (collection, path[-2], path[-1]) in _LEAF_NAMES:
-                name = ".".join(path[:-2] + (_LEAF_NAMES[(collection, path[-2], path[-1])],))
-            else:
-                raise KeyError(f"unmapped Flax leaf {collection}/{'/'.join(path)}")
-            if name not in want:
-                raise KeyError(f"Flax leaf {collection}/{'/'.join(path)} -> {name!r}, "
-                               "which the model does not have")
-            if arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        for name, t in _convert_collection(variables.get(collection, {}), collection,
+                                           want).items():
             if name in out:
                 raise KeyError(f"two Flax leaves fill {name!r}")
-            t = torch.from_numpy(np.array(arr, order="C")).to(want[name].dtype)
-            if t.shape != want[name].shape:
-                raise ValueError(f"{name}: Flax shape {tuple(t.shape)} vs model "
-                                 f"{tuple(want[name].shape)}")
             out[name] = t
-    missing = sorted(set(want) - set(out))
-    if missing:
-        raise KeyError(f"model entries with no Flax leaf: {missing}")
+    _require_all(out, want, "model entries")
     return out
+
+
+def _expect_keys(tree: Mapping, keys, where: str) -> None:
+    if set(tree) != set(keys):
+        raise KeyError(f"optimiser state {where} holds {sorted(tree)}, not {sorted(keys)}")
+
+
+def flax_train_state_to_port(tree: Mapping, state) -> None:
+    """Fill the port's TrainState (model, optimiser, step) in place from a
+    phiseg_tpu TrainState tree with numpy leaves; see the module docstring.
+    Raises on a leaf or an optimiser entry it cannot place."""
+    _expect_keys(tree, ("step", "params", "batch_stats", "opt_state"), "TrainState")
+    model, opt = state.model, state.optimizer
+    model.load_state_dict(flax_to_state_dict(
+        {"params": tree["params"], "batch_stats": tree["batch_stats"]}, model))
+    step = int(np.asarray(tree["step"]))
+
+    opt_tree = tree["opt_state"]
+    _expect_keys(opt_tree, ("0", "1"), "")
+    _expect_keys(opt_tree["1"], ("count",), "['1']")
+    if int(np.asarray(opt_tree["1"]["count"])) != step:
+        raise ValueError(f"the schedule's count {opt_tree['1']['count']} is not the step {step}")
+    params = dict(model.named_parameters())
+    names = list(params)
+
+    def moments(key):
+        got = _convert_collection(opt_tree["0"][key], "params", params)
+        _require_all(got, names, f"parameters of {key}")
+        return got
+
+    sd = opt.state_dict()
+    index = dict(zip(names, sd["param_groups"][0]["params"]))
+    if isinstance(opt, torch.optim.Adam):
+        _expect_keys(opt_tree["0"], ("count", "mu", "nu"), "['0'] (adam)")
+        count = float(np.asarray(opt_tree["0"]["count"]))
+        mu, nu = moments("mu"), moments("nu")
+        sd["state"] = {index[n]: {"step": torch.tensor(count), "exp_avg": mu[n],
+                                  "exp_avg_sq": nu[n]} for n in names}
+    elif isinstance(opt, torch.optim.SGD) and opt.defaults["momentum"]:
+        _expect_keys(opt_tree["0"], ("trace",), "['0'] (momentum)")
+        trace = moments("trace")
+        sd["state"] = {index[n]: {"momentum_buffer": trace[n]} for n in names}
+    elif isinstance(opt, torch.optim.SGD):
+        _expect_keys(opt_tree["0"], (), "['0'] (sgd)")
+        sd["state"] = {}
+    else:
+        raise TypeError(f"no optax state maps to {type(opt).__name__}")
+    opt.load_state_dict(sd)
+    state.step = step

@@ -1,4 +1,4 @@
-"""Data layer: synthetic dataset, batch provider, on-device augmentation."""
+"""Data layer: synthetic and LIDC datasets, batch provider, on-device and host augmentation."""
 
 from phiseg_tpu_torch.data.batch_provider import BatchProvider
 from phiseg_tpu_torch.data.registry import get_dataset

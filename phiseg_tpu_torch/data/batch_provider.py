@@ -3,10 +3,12 @@
 The original cannot be imported without jax (its package __init__ pulls in
 the dataset registry, which imports the JAX config). This copy keeps the
 provider's behaviour: epoch-exhaustive random sampling without replacement
-(ref batch_provider.py:43-67), per-sample random annotator selection
-(:131-137) and the optional resize / normalise / rescale post-processing.
-Sequential iteration, which only validation uses, waits for validation. Host-side augmentation is not ported: the port
-augments on the device (phiseg_tpu_torch/data/augment_device.py).
+(ref batch_provider.py:43-67), sequential iteration (:69-96), per-sample
+random annotator selection (:131-137) and the optional resize / host
+augmentation / normalise / rescale post-processing, drawing from its
+RandomState in the JAX provider's order. The port's main path augments on
+the card (phiseg_tpu_torch/data/augment_device.py); `do_augmentations=True`
+augments on the host instead (phiseg_tpu_torch/data/augment_host.py).
 """
 
 from __future__ import annotations
@@ -16,14 +18,7 @@ from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 
-
-def normalise_images(x: np.ndarray) -> np.ndarray:
-    """Per-image zero-mean unit-std (phiseg_tpu/utils/misc.py:100-109)."""
-    out = np.zeros(x.shape, np.float32)
-    for i in range(x.shape[0]):
-        img = np.float32(x[i].copy())
-        out[i] = (img - img.mean()) / max(img.std(), 1e-12)
-    return out
+from phiseg_tpu_torch.utils.misc import normalise_images
 
 
 def resize_batch(batch: np.ndarray, target_size: Sequence[int]) -> np.ndarray:
@@ -80,18 +75,15 @@ class BatchProvider:
             if annotator_range is not None
             else list(range(num_labels_per_subject))
         )
-        if do_augmentations:
-            raise NotImplementedError(
-                "host-side augmentation is not ported; the port augments on "
-                "the device (phiseg_tpu_torch/data/augment_device.py)"
-            )
+        self.do_augmentations = do_augmentations
         self.augmentation_options = canonicalise_aug_options(augmentation_options or {})
         self.normalise = normalise
         self.rescale_range = rescale_range
         self.resize_to = tuple(resize_to) if resize_to is not None else None
         self.rng = np.random.RandomState(seed)
-        # next_batch runs on the trainer's prefetch thread; RandomState and
-        # the epoch bookkeeping are not thread-safe.
+        # next_batch may be called from the trainer's prefetch thread AND the
+        # validation path concurrently; RandomState and the epoch bookkeeping
+        # are not thread-safe.
         self._lock = threading.Lock()
 
     # -- sampling -----------------------------------------------------------
@@ -114,6 +106,30 @@ class BatchProvider:
                 y = self._select_random_label(y)
             return self._post_process(x, y)
 
+    def iterate_batches(self, batch_size: int, shuffle: bool = True):
+        """Sequential epoch generator (ref batch_provider.py:69-96).
+
+        Thread-safe against a concurrent next_batch (the trainer's prefetch
+        thread): the iteration order is a locked snapshot (self.indices is
+        never mutated, unlike the reference's in-place shuffle), and each
+        batch's HDF5 read + RandomState draw happens under the lock. The
+        lock is NOT held across yields.
+        """
+        with self._lock:
+            order = self.indices.copy()
+            if shuffle:
+                self.rng.shuffle(order)
+        n = order.shape[0]
+        for b in range(0, n, batch_size):
+            batch_indices = np.sort(order[b : b + batch_size])
+            with self._lock:
+                x = np.asarray(self.images[batch_indices, ...])
+                y = np.asarray(self.labels[batch_indices, ...])
+                if self.num_labels_per_subject > 1:
+                    y = self._select_random_label(y)
+                batch = self._post_process(x, y)
+            yield batch
+
     # -- internals -----------------------------------------------------------
 
     def _select_random_label(self, labels: np.ndarray) -> np.ndarray:
@@ -128,6 +144,10 @@ class BatchProvider:
             x = resize_batch(x, self.resize_to)
             if y.ndim > 1:
                 y = resize_batch(y, self.resize_to)
+        if self.do_augmentations:
+            from phiseg_tpu_torch.data.augment_host import augment_batch_host
+
+            x, y = augment_batch_host(x, y, self.augmentation_options, self.rng)
         if self.normalise:
             x = normalise_images(x)
         if self.rescale_range is not None:

@@ -14,6 +14,11 @@ floats, strings, lists and dicts, read back with
   step       the train state's step counter;
   generator  the trainer's torch.Generator state (a uint8 tensor), or None.
 
+`load_tag` also reads the checkpoints that phiseg_tpu writes in its log
+dirs, `model*.ckpt-<step>.msgpack` (flax msgpack of the whole TrainState),
+through engine/msgpack_reader.py and convert.flax_train_state_to_port; the
+Trainer resumes from `.pt` files only.
+
 A save publishes atomically (tmp + os.replace). The port's train step updates
 the parameters IN PLACE, where a JAX state is immutable, so every save works
 from a host copy taken when it is called (`host_snapshot`): an async write
@@ -47,6 +52,19 @@ _TAG_PREFIX = {
     "archive": "model_archive.ckpt",
 }
 SUFFIX = ".pt"
+JAX_SUFFIX = ".msgpack"  # phiseg_tpu's checkpoints (phiseg_tpu/engine/checkpoint.py:85-86)
+
+
+def list_steps(log_dir: str, tag: str, suffix: str = SUFFIX):
+    """The sorted steps of `tag`'s checkpoints in log_dir with `suffix`."""
+    prefix = _TAG_PREFIX[tag]
+    pat = re.compile(re.escape(prefix) + r"-(\d+)" + re.escape(suffix) + "$")
+    steps = []
+    for p in glob.glob(os.path.join(log_dir, f"{prefix}-*{suffix}")):
+        m = pat.search(os.path.basename(p))
+        if m:
+            steps.append(int(m.group(1)))
+    return sorted(steps)
 
 
 def _host_copy(obj: Any) -> Any:
@@ -120,14 +138,7 @@ class CheckpointManager:
         return os.path.join(self.log_dir, f"{_TAG_PREFIX[tag]}-{step}{SUFFIX}")
 
     def _list_steps(self, tag: str):
-        prefix = _TAG_PREFIX[tag]
-        pat = re.compile(re.escape(prefix) + r"-(\d+)" + re.escape(SUFFIX) + "$")
-        steps = []
-        for p in glob.glob(os.path.join(self.log_dir, f"{prefix}-*{SUFFIX}")):
-            m = pat.search(os.path.basename(p))
-            if m:
-                steps.append(int(m.group(1)))
-        return sorted(steps)
+        return list_steps(self.log_dir, tag)
 
     def latest_step(self, tag: str = "latest") -> Optional[int]:
         """Highest saved step of a tag (ref get_latest_model_checkpoint_path);
@@ -284,6 +295,31 @@ class CheckpointManager:
         if generator is not None and ckpt.get("generator") is not None:
             generator.set_state(ckpt["generator"])
         return state, step
+
+
+def load_tag(state, log_dir: str, tag: str = "latest"):
+    """Load the newest checkpoint of `tag` in log_dir into the TrainState
+    `state` in place, from the port's `.pt` or phiseg_tpu's `.msgpack`,
+    whichever holds the newer step. Raises if that step exists in both
+    formats, or if neither holds the tag. Returns (state, step)."""
+    if tag not in TAGS:
+        raise ValueError(f"unknown checkpoint tag: {tag!r} (known: {TAGS})")
+    pt, jx = list_steps(log_dir, tag), list_steps(log_dir, tag, JAX_SUFFIX)
+    if not pt and not jx:
+        raise FileNotFoundError(f"no '{tag}' checkpoint in {log_dir}")
+    step = max(pt + jx)
+    if step in pt and step in jx:
+        raise ValueError(f"'{tag}' at step {step} is in {log_dir} as both {SUFFIX} and "
+                         f"{JAX_SUFFIX}; remove one")
+    if step in pt:
+        return CheckpointManager(log_dir).restore(state, tag, step)
+    from phiseg_tpu_torch.convert import flax_train_state_to_port
+    from phiseg_tpu_torch.engine.msgpack_reader import msgpack_restore
+
+    path = os.path.join(log_dir, f"{_TAG_PREFIX[tag]}-{step}{JAX_SUFFIX}")
+    with open(path, "rb") as f:
+        flax_train_state_to_port(msgpack_restore(f.read()), state)
+    return state, step
 
 
 def write_metrics_jsonl(path: str, step: int, metrics: dict) -> None:

@@ -11,7 +11,10 @@ Configs are frozen dataclasses registered by name
 for provenance, evals reload the snapshot" contract is preserved by
 serialising to JSON (ExperimentConfig.save/load below).
 
-The experiment log root comes from PHISEG_LOG_ROOT (default ./logs).
+Machine-level paths come from environment variables, as in the JAX package:
+  PHISEG_LOG_ROOT      -- experiment log root        (default ./logs)
+  PHISEG_DATA_ROOT     -- raw LIDC pickle path
+  PHISEG_PREPROC_ROOT  -- preprocessed HDF5 folder   (default ./preproc)
 """
 
 from __future__ import annotations
@@ -26,6 +29,14 @@ import torch
 
 def log_root() -> str:
     return os.environ.get("PHISEG_LOG_ROOT", os.path.join(os.getcwd(), "logs"))
+
+
+def data_root() -> str:
+    return os.environ.get("PHISEG_DATA_ROOT", "")
+
+
+def preproc_root() -> str:
+    return os.environ.get("PHISEG_PREPROC_ROOT", os.path.join(os.getcwd(), "preproc"))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,4 +1,5 @@
-"""Conv block, pooling and resizes (port of phiseg_tpu/nn/layers.py).
+"""Conv block, residual unit, dense layer, pooling and resizes (port of
+phiseg_tpu/nn/layers.py).
 
 Convolutions run NCHW inside the modules; the public resize and pool
 functions here take NCHW too. The dtype policy is the JAX package's
@@ -45,6 +46,15 @@ def avg_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x, 2, 2)
 
 
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/stride-2 max pooling with SAME padding (ref layers.py:18-28).
+
+    Flax pads an odd side by one on the high edge with -inf; a window that
+    ends past the edge (ceil_mode) takes the max of its valid pixels, which
+    is the same."""
+    return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Global average pool over the spatial dims: NCHW -> (B, C) (ref layers.py:79-81)."""
     return x.mean(dim=(2, 3))
@@ -53,6 +63,21 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Nearest resize of NCHW to (H, W) with half-pixel centres, as jax.image."""
     return F.interpolate(x, size=tuple(size), mode="nearest-exact")
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NCHW to (H, W) as jax.image.resize(..., "bilinear")
+    (ref layers.py:336-345): half-pixel centres and, along a side that
+    shrinks, a triangle kernel widened by the inverse scale (jax's
+    antialiasing), each output's weights renormalised over the valid
+    pixels. torch's antialiased bilinear computes the same weights."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
+                         antialias=True)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest upsample of NCHW by an integer factor (ref layers.py:326-333)."""
+    return resize_nearest(x, (x.shape[-2] * factor, x.shape[-1] * factor))
 
 
 def upsample_bilinear(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
@@ -160,8 +185,9 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def _fans(w: torch.Tensor) -> Tuple[int, int]:
-    """(fan_in, fan_out) of an OIHW kernel, as Flax counts them for HWIO."""
-    receptive = w.shape[2] * w.shape[3]
+    """(fan_in, fan_out) of an OIHW (or a Linear's (out, in)) kernel, as
+    Flax counts them for HWIO (or (in, out))."""
+    receptive = math.prod(w.shape[2:])
     return w.shape[1] * receptive, w.shape[0] * receptive
 
 
@@ -229,7 +255,8 @@ class ConvBlock(nn.Module):
     """Conv2D + optional normalisation + activation + optional dropout
     (ref layers.py:94-145; JAX layers.py:116-216).
 
-    SAME padding; the conv has a bias unless norm="batch" (renorm keeps it,
+    SAME padding, as Flax pads it: with `stride` 2 an even side is padded
+    on the high edge only; the conv has a bias unless norm="batch" (renorm keeps it,
     as JAX's `use_bias = norm != "batch"`); the norm comes before the
     activation. The norms (ref tfwrapper/normalisation.py):
 
@@ -255,7 +282,7 @@ class ConvBlock(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  activation: Activation = F.relu, norm: str = "none",
                  dtype: torch.dtype = torch.float32, weight_init: str = "he_normal",
-                 dropout_keep_prob: Optional[float] = None):
+                 dropout_keep_prob: Optional[float] = None, stride: int = 1):
         super().__init__()
         if norm == "batch_bf16":
             raise NotImplementedError(
@@ -264,8 +291,9 @@ class ConvBlock(nn.Module):
         if norm not in NORMS:
             raise ValueError(f"unknown norm: {norm!r}")
         get_weight_init(weight_init)  # unknown names raise here
-        self.conv = nn.Conv2d(in_features, features, kernel_size,
-                              padding=kernel_size // 2, bias=norm != "batch")
+        self.conv = nn.Conv2d(in_features, features, kernel_size, stride=stride,
+                              padding=kernel_size // 2 if stride == 1 else 0,
+                              bias=norm != "batch")
         self.norm = norm
         self.weight_init = weight_init
         self.dropout_keep_prob = dropout_keep_prob
@@ -287,7 +315,10 @@ class ConvBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         w = self.conv.weight.to(self.dtype)
         b = None if self.conv.bias is None else self.conv.bias.to(self.dtype)
-        x = F.conv2d(x.to(self.dtype), w, b, padding=self.conv.padding)
+        x = x.to(self.dtype)
+        if self.conv.stride != (1, 1):
+            x = F.pad(x, _same_pads(x.shape[-2:], self.conv.kernel_size, self.conv.stride))
+        x = F.conv2d(x, w, b, stride=self.conv.stride, padding=self.conv.padding)
         x = self._normalise(x)
         if self.activation is not None:
             x = self.activation(x)
@@ -320,6 +351,66 @@ class ConvBlock(nn.Module):
         return x
 
 
+def _same_pads(hw, kernel, stride) -> Tuple[int, int, int, int]:
+    """F.pad's (left, right, top, bottom) of XLA's SAME padding: the output
+    side is ceil(in / stride) and the low edge gets the smaller half."""
+    pads = []
+    for n, k, st in zip(hw, kernel, stride):
+        total = max((-(-n // st) - 1) * st + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads[1] + pads[0]
+
+
+class ResidualUnit(nn.Module):
+    """Residual unit with optional downsampling / projection (ref
+    layers.py:428-536, He et al. 2015; JAX layers.py:263-288).
+
+    c1 (stride 2 when down_sample) then c2 without its activation, plus the
+    shortcut: x itself, or a 1x1 convolution `proj` (he_normal, with bias, in
+    the compute dtype) when the unit downsamples or changes the width; the
+    activation after the sum. The attribute names are the Flax scopes."""
+
+    def __init__(self, in_features: int, features: int, down_sample: bool = False,
+                 activation: Activation = F.relu, norm: str = "batch",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        stride = 2 if down_sample else 1
+        self.proj = (nn.Conv2d(in_features, features, 1, stride=stride)
+                     if down_sample or in_features != features else None)
+        self.c1 = ConvBlock(in_features, features, activation=activation, norm=norm,
+                            dtype=dtype, stride=stride)
+        self.c2 = ConvBlock(features, features, activation=None, norm=norm, dtype=dtype)
+        self.activation = activation
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = x
+        if self.proj is not None:
+            shortcut = F.conv2d(x.to(self.dtype), self.proj.weight.to(self.dtype),
+                                self.proj.bias.to(self.dtype), stride=self.proj.stride)
+        out = self.c2(self.c1(x)) + shortcut
+        return self.activation(out) if self.activation is not None else out
+
+
+class Dense(nn.Module):
+    """Dense layer on the last axis (ref layers.py:539-582; JAX
+    layers.py:326-338): he_normal kernel, bias, the product in the compute
+    dtype, then the activation. `Dense_0` is the Flax scope of the inner
+    layer, whose (in, out) kernel converts to the Linear's (out, in)."""
+
+    def __init__(self, in_features: int, features: int, activation: Activation = F.relu,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, features)
+        self.activation = activation
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lin = self.Dense_0
+        x = F.linear(x.to(self.dtype), lin.weight.to(self.dtype), lin.bias.to(self.dtype))
+        return self.activation(x) if self.activation is not None else x
+
+
 class _ChannelAffine(nn.Module):
     """Per-channel scale and bias of an NCHW tensor, in its dtype (Flax
     LayerNorm's parameters with feature_axes=-1)."""
@@ -339,8 +430,16 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     kernel by the block's `weight_init` (he_normal by default, which in Flax
     is a normal truncated at two standard deviations), zero conv biases, and
     instance norm's in_scale from N(0, 0.02) with in_offset 0. The other
-    norms keep scale 1 and bias 0, running mean 0 and variance 1."""
+    norms keep scale 1 and bias 0, running mean 0 and variance 1. A
+    ResidualUnit's projection and a Dense layer get he_normal and a zero
+    bias."""
     for m in module.modules():
+        if isinstance(m, (ResidualUnit, Dense)):
+            layer = m.Dense_0 if isinstance(m, Dense) else m.proj
+            if layer is not None:  # a unit without a projection has none
+                WEIGHT_INITS["he_normal"](layer.weight, generator)
+                with torch.no_grad():
+                    layer.bias.zero_()
         if isinstance(m, ConvBlock):
             get_weight_init(m.weight_init)(m.conv.weight, generator)
             with torch.no_grad():

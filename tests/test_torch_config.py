@@ -41,11 +41,19 @@ def test_dtype_is_a_torch_dtype():
     assert JaxConfig().dtype == jnp.bfloat16
 
 
-def test_dataset_registry_synthetic_and_unported_lidc():
+def test_dataset_registry_synthetic_and_unported_lidc(tmp_path, monkeypatch):
+    """Synthetic data loads; LIDC is ported (tests/test_torch_lidc.py) and
+    reads PHISEG_DATA_ROOT, so a missing pickle raises; the datasets that the
+    reference names but never shipped still raise NotImplementedError."""
     cfg = get_experiment("phiseg_7_5_synth").replace(image_size=(32, 32, 1), synth_n_train=6,
                                                      synth_n_val=2, synth_n_test=2)
     data = get_dataset(cfg)
     x, s = data.train.next_batch(4)
     assert x.shape == (4, 32, 32, 1) and s.shape == (4, 32, 32)
-    with pytest.raises(NotImplementedError, match="LIDC"):
+    monkeypatch.setenv("PHISEG_DATA_ROOT", str(tmp_path / "missing.pickle"))
+    monkeypatch.setenv("PHISEG_PREPROC_ROOT", str(tmp_path / "preproc"))
+    with pytest.raises(FileNotFoundError):
         get_dataset(get_experiment("phiseg_7_5"))
+    for name in ("acdc", "uzh_prostate"):
+        with pytest.raises(NotImplementedError, match="no loader was shipped"):
+            get_dataset(cfg.replace(data_identifier=name))

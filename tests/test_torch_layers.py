@@ -147,3 +147,89 @@ def test_he_normal_init_is_truncated_at_two_std():
     assert float(w.abs().max()) <= 2 * std + 1e-7
     assert abs(float(w.std()) - np.sqrt(2.0 / (16 * 9))) < 0.05 * np.sqrt(2.0 / (16 * 9))
     assert float(blk.conv.bias.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 5)])
+def test_max_pool_2x2_same_padding(hw):
+    x = np.random.RandomState(7).randn(2, hw[0], hw[1], 3).astype(np.float32)
+    want = jl.max_pool_2x2(jnp.asarray(x))
+    np.testing.assert_allclose(to_nhwc(tl.max_pool_2x2(to_nchw(x))), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("size", [(10, 12), (16, 9), (3, 4), (5, 13), (8, 6)])
+def test_resize_bilinear_antialiases_like_jax(size):
+    """From 8x6: upsamples, downsamples (jax.image antialiases there), both
+    at once, and the identity."""
+    x = np.random.RandomState(8).randn(2, 8, 6, 3).astype(np.float32)
+    want = np.asarray(jl.resize_bilinear(jnp.asarray(x), size))
+    got = to_nhwc(tl.resize_bilinear(to_nchw(x), size))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("factor", [1, 2, 3])
+def test_upsample_nearest(factor):
+    x = np.random.RandomState(9).randn(2, 5, 3, 2).astype(np.float32)
+    want = np.asarray(jl.upsample_nearest(jnp.asarray(x), factor))
+    np.testing.assert_array_equal(to_nhwc(tl.upsample_nearest(to_nchw(x), factor)), want)
+
+
+def _flax_pair(jmod, tmod, x, seed):
+    variables = jax.tree_util.tree_map(np.asarray, jmod.init(jax.random.PRNGKey(seed), x))
+    tmod.load_state_dict(flax_to_state_dict(variables, tmod))
+    return variables
+
+
+@pytest.mark.parametrize("down_sample,cin,norm", [(False, 8, "batch"), (False, 3, "none"),
+                                                  (True, 8, "batch"), (True, 4, "none")])
+@pytest.mark.parametrize("train", [True, False])
+def test_residual_unit(down_sample, cin, norm, train):
+    """The shortcut is x or the 1x1 `proj`; c1 strides 2 with Flax's SAME
+    padding when the unit downsamples; scopes proj / c1 / c2."""
+    x = np.random.RandomState(10).randn(4, 8, 8, cin).astype(np.float32)
+    jmod = jl.ResidualUnit(8, down_sample=down_sample, norm=norm)
+    tmod = tl.ResidualUnit(cin, 8, down_sample=down_sample, norm=norm)
+    variables = _flax_pair(jmod, tmod, jnp.asarray(x), 1)
+    assert ("proj" in variables["params"]) == (tmod.proj is not None)
+    if train and norm == "batch":
+        want, _ = jmod.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    else:
+        want = jmod.apply(variables, jnp.asarray(x), train=train)
+    tmod.train(train)
+    got = tmod(to_nchw(x))
+    assert got.shape == (4, 8, 4 if down_sample else 8, 4 if down_sample else 8)
+    np.testing.assert_allclose(to_nhwc(got), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("activation", ["relu", None])
+@pytest.mark.parametrize("shape", [(5, 6), (2, 3, 6)])
+def test_dense(activation, shape):
+    x = np.random.RandomState(11).randn(*shape).astype(np.float32)
+    jmod = jl.Dense(4, activation=jax.nn.relu if activation else None)
+    tmod = tl.Dense(6, 4, activation=F.relu if activation else None)
+    variables = _flax_pair(jmod, tmod, jnp.asarray(x), 2)
+    want = jmod.apply(variables, jnp.asarray(x))
+    np.testing.assert_allclose(tmod(torch.from_numpy(x)).detach().numpy(), np.asarray(want), **TOL)
+
+
+def test_residual_unit_and_dense_init_like_flax():
+    """he_normal (Flax's: a normal of variance 2 / fan_in before the
+    truncation at two standard deviations) and zero biases for the
+    projection and the dense kernel."""
+    unit, dense = tl.ResidualUnit(4, 16, down_sample=True), tl.Dense(300, 50)
+    g = torch.Generator().manual_seed(0)
+    for m in (unit, dense):
+        tl.init_weights_(m, g)
+    for w, fan_in in ((unit.proj.weight, 4), (dense.Dense_0.weight, 300)):
+        std = np.sqrt(2.0 / fan_in)  # of the truncated draw
+        assert float(w.detach().abs().max()) <= 2 * std / tl._TRUNC_STD + 1e-6
+        assert abs(float(w.detach().std()) / std - 1) < 0.25
+    assert not unit.proj.bias.detach().any() and not dense.Dense_0.bias.detach().any()
+
+
+def test_nn_package_exports_what_jax_exports():
+    import phiseg_tpu.nn as jnn
+    import phiseg_tpu_torch.nn as tnn
+
+    assert tnn.__all__ == jnn.__all__
+    assert all(hasattr(tnn, n) for n in tnn.__all__)

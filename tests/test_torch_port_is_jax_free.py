@@ -1,7 +1,9 @@
 """The port runs without jax: in a fresh interpreter where importing jax,
-flax, optax or the JAX package fails, every module of phiseg_tpu_torch
-imports, and one CPU train step (with on-device augmentation), one
-validation and a checkpoint save and restore run."""
+flax, optax, the JAX package, h5py or msgpack fails (the card's machine has
+none of them), every module of phiseg_tpu_torch imports, and one CPU train
+step (with on-device augmentation), one validation, a checkpoint save and
+restore, and a load of the committed phiseg_tpu checkpoint
+(tests/data/jax_checkpoint_small) run."""
 
 import os
 import subprocess
@@ -14,7 +16,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "phiseg_tpu"):
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "phiseg_tpu", "h5py", "msgpack")
+for name in BLOCKED:
     sys.modules[name] = None  # any import of these now raises ImportError
 import torch
 torch.set_num_threads(1)
@@ -48,7 +51,20 @@ with tempfile.TemporaryDirectory() as d:
     _, step = CheckpointManager(d).restore(fresh, "best_ged")
     assert step == 1 and all(torch.equal(a, b) for a, b in
                              zip(fresh.model.state_dict().values(), state.model.state_dict().values()))
-leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "optax", "phiseg_tpu")
+# the phiseg_tpu checkpoint fixture, through the port's own msgpack decoder
+import shutil
+import numpy as np
+from phiseg_tpu_torch.engine.loading import load_experiment
+from phiseg_tpu_torch.engine.train import make_sample_fn
+with tempfile.TemporaryDirectory() as d:
+    shutil.copytree("tests/data/jax_checkpoint_small", d + "/log")
+    _, model, jstate, jstep = load_experiment(d + "/log", "best_ged", device="cpu")
+    exp = dict(np.load(d + "/log/expected.npz"))
+    eps = [torch.from_numpy(exp[k]) for k in sorted(k for k in exp if k.startswith("eps_prior_"))]
+    probs = make_sample_fn(model, exp["probs"].shape[0])(torch.from_numpy(exp["x"]), eps=eps)
+    assert jstep == jstate.step > 0 and jstate.optimizer.state
+    assert np.allclose(probs.numpy(), exp["probs"], rtol=1e-4, atol=1e-4)
+leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED
                 and sys.modules[k] is not None)
 assert not leaked, leaked
 print("OK", len(mods))
