@@ -136,7 +136,31 @@ Phases, each fatal on failure:
      tests/data/jax_checkpoint_small restored on the card by load_experiment,
      its sample probabilities and eval losses from the stored noise against
      the JAX package's within JAX_CKPT_TOL (f32, TF32 off), then
-     test_quantitative through its CLI on that log dir (npz contract).
+     test_quantitative through its CLI on that log dir (npz contract);
+ 20. norm="batch_bf16" at full width: `phiseg_7_5_synth` (R=7, L=5, n0=32,
+     128x128, batch 12, bf16, on-device augmentation) BF16_STEPS steps
+     through the Trainer, in turns with norm="batch" (batch, bf16, bf16,
+     batch): losses finite, every parameter moved, K1 and K2 once a step,
+     the median step time of each run; then one step with "batch" (twice,
+     for the spread of the card's bf16 atomics) and one with "batch_bf16"
+     from one saved state, noise draw and augmentation draw: losses within
+     BF16_STEP_LOSS_TOL, the shared parameters' gradients (all-parameter
+     relative L2) within 3x the batch-vs-batch spread + 1e-3;
+ 21. a phiseg_tpu run carried on: the committed log dirs
+     tests/data/jax_logdir_resume/{detunet,detunet_batches,phiseg} (a tiny
+     DetUNet on one batch, the same on four, and a PHiSeg that phiseg_tpu's
+     Trainer trained to step 3, scripts/make_jax_resume_fixture.py) copied
+     under logs/chip_smoke/ and resumed by the port's Trainer on the card in
+     f32, TF32 off, to step 6 (detunet_batches to 5). First, from each
+     resumed state, one step with the kernels against two with the plain CE
+     at the run's own shapes (L=2 for the PHiSeg, 16x16, batch 4), held as
+     in phase 13 (losses within KERNEL_STEP_LOSS_TOL). Then the run: the
+     `.msgpack` step, Adam state, K1 (one a step + the step-4 validation's
+     calls) and K2 (one a step) launches, finite losses, `.pt` latest at the
+     last step, the `.msgpack` and config.json unchanged; each DetUNet's
+     losses within JAX_RESUME_RTOL of the JAX Trainer's resumed run
+     (expected.npz, steps 3-5; expected_batches.npz, steps 3-4, the batches
+     the stream gives a resumed run).
 
 Spawned ranks have a join timeout; a rank that fails or hangs fails the run.
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -657,12 +681,12 @@ def phase_in_context(cfg):
     return _ce_in_context(cfg, model, x, s)
 
 
-def _kernel_vs_plain_step(cfg, x, s, head: str, loss_tol: float = 1e-4):
-    """One full-width step with the fused kernels and two with the plain
-    version, from one saved state, one noise draw and one augmentation draw:
-    the loss dicts agree within loss_tol relative and the gradients agree
-    (the parameters named `head...`, the likelihood's output convolutions,
-    tightly). Returns the state."""
+def _kernel_vs_plain_step(cfg, x, s, head: str, loss_tol: float = 1e-4, init=None):
+    """One step with the fused kernels and two with the plain version, from
+    one saved state (`init`, else the config's seeded init), one noise draw
+    and one augmentation draw: the loss dicts agree within loss_tol relative
+    and the gradients agree (the parameters named `head...`, the
+    likelihood's output convolutions, tightly). Returns the state."""
     import torch
 
     from phiseg_tpu_torch.data.augment_device import make_augment_fn
@@ -674,7 +698,7 @@ def _kernel_vs_plain_step(cfg, x, s, head: str, loss_tol: float = 1e-4):
     eps = [torch.randn(shape, device=device, generator=g, dtype=cfg.dtype)
            for shape in model.latent_shapes(cfg.batch_size)]
     augment_fn = make_augment_fn(cfg.augmentation_options, cfg.nlabels)
-    init = model.state_dict()
+    init = model.state_dict() if init is None else init
     runs = {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -2714,6 +2738,242 @@ def phase_jax_checkpoint():
     return gap
 
 
+BF16_STEPS = 10  # phase 20: Trainer steps of each norm run
+# phase 20: one step with norm "batch" against one with "batch_bf16" from one
+# state, noise and augmentation draw. Every batch-normalised block of the
+# model ends in ReLU, which commutes with the cast to bf16, so the two steps
+# compute the same function; batch_bf16 adds only its zero conv biases. Held
+# as the kernel step is (phase 4): losses within BF16_STEP_LOSS_TOL relative,
+# the gradients of the shared parameters within 3x the spread of two "batch"
+# steps + 1e-3 (all-parameter relative L2). Stated before the first run.
+BF16_STEP_LOSS_TOL = 1e-3
+# phase 21: the committed phiseg_tpu log dirs (scripts/make_jax_resume_fixture.py),
+# each with the step its run is carried on to and the JAX Trainer's losses of
+# that run (None: the PHiSeg, which draws its own noise), and the tolerance of
+# the DetUNets' losses against them (tests/test_torch_resume.py LOSS_RTOL)
+JAX_RESUME_FIXTURE = os.path.join("tests", "data", "jax_logdir_resume")
+JAX_RESUME_CASES = {"detunet": (6, "expected.npz"),
+                    "detunet_batches": (5, "expected_batches.npz"),
+                    "phiseg": (6, None)}
+JAX_RESUME_STEP, JAX_RESUME_RTOL = 3, 1e-4
+
+
+def _moved_and_finite(cfg, model):
+    """(parameters equal to their seeded init, non-finite state entries)."""
+    import torch
+
+    from phiseg_tpu_torch.engine.train import build_model
+
+    init = build_model(cfg, device="cpu", seed=cfg.seed).state_dict()
+    trained = model.state_dict()
+    unchanged = [n for n, _ in model.named_parameters() if torch.equal(init[n], trained[n].cpu())]
+    return unchanged, [n for n, t in trained.items() if not torch.isfinite(t).all()]
+
+
+def _bf16_norm_run(cfg, log_dir: str):
+    """BF16_STEPS steps of `cfg` through the Trainer: launches, losses,
+    median step ms (steps 2.., each synchronised for its log line), peak."""
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.trainer import Trainer
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    data = get_dataset(cfg)
+    trainer = Trainer(cfg, log_dir=log_dir)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frce.reset_launch_counts()
+    trainer.train(data, BF16_STEPS)
+    torch.cuda.synchronize()
+    launches = dict(frce.LAUNCHES)
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [r for r in map(json.loads, f) if "batch_total_loss" in r]
+    unchanged, nonfinite = _moved_and_finite(cfg, trainer.state.model)
+    med = statistics.median(1000.0 * cfg.batch_size / r["images_per_sec"] for r in recs[2:])
+    finite = all(math.isfinite(v) for r in recs for k, v in r.items() if k.startswith("batch_"))
+    say(f"norm={cfg.norm} Trainer run: {BF16_STEPS} steps, total loss "
+        f"{recs[0]['batch_total_loss']:.6g} -> {recs[-1]['batch_total_loss']:.6g}, all finite "
+        f"{finite}; parameters unchanged {len(unchanged)}, non-finite state {len(nonfinite)}; "
+        f"launches {launches}; median step {med:.3f} ms over steps 2..{BF16_STEPS - 1}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if [r["step"] for r in recs] != list(range(BF16_STEPS)) or not finite:
+        fail(f"norm={cfg.norm}: logged steps {[r['step'] for r in recs]}, all finite {finite}")
+    if unchanged or nonfinite:
+        fail(f"norm={cfg.norm}: parameters unchanged {unchanged[:5]}, non-finite {nonfinite[:5]}")
+    if launches["fused_residual_ce_fwd"] != BF16_STEPS or \
+            launches["fused_residual_ce_bwd"] != BF16_STEPS or launches["fused_residual_ce_dp"]:
+        fail(f"norm={cfg.norm}: launches {launches} in {BF16_STEPS} steps")
+    return launches, med
+
+
+def _batch_vs_batch_bf16_step(base, x, s):
+    """One full-width step with norm "batch" (twice: the spread of the card's
+    bf16 atomics) and one with "batch_bf16", from one saved state (batch_bf16's
+    seeded init; its zero conv biases are the entries "batch" lacks), one
+    noise draw and one augmentation draw."""
+    import torch
+
+    from phiseg_tpu_torch.data.augment_device import make_augment_fn
+    from phiseg_tpu_torch.engine.train import create_train_state, make_train_step
+
+    device = x.device
+    cfg16 = base.replace(norm="batch_bf16")
+    init = create_train_state(cfg16, device).model.state_dict()
+    g = torch.Generator(device=device).manual_seed(7)
+    eps = [torch.randn(shape, device=device, generator=g, dtype=base.dtype)
+           for shape in create_train_state(base, device).model.latent_shapes(base.batch_size)]
+    augment_fn = make_augment_fn(base.augmentation_options, base.nlabels)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, cfg in (("batch", base), ("batch again", base), ("batch_bf16", cfg16)):
+            state = create_train_state(cfg, device)
+            missing, unexpected = state.model.load_state_dict(init, strict=False)
+            if missing or (cfg is cfg16) == bool(unexpected):
+                fail(f"{name}: the saved state leaves {missing} unset and has {unexpected} over")
+            step = make_train_step(cfg, augment_fn=augment_fn)
+            aug_gen = torch.Generator(device=device).manual_seed(8)
+            losses = {k: float(v) for k, v in step(state, x, s, aug_gen, eps=eps).items()}
+            runs[name] = losses, {n: p.grad.float() for n, p in state.model.named_parameters()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (ld_b, gr_b), (_, gr_b2), (ld_16, gr_16) = (runs[k] for k in ("batch", "batch again",
+                                                                  "batch_bf16"))
+    worst = max(abs(ld_16[k] - ld_b[k]) / abs(ld_b[k]) for k in ld_b)
+    rel, noise = _rel_l2(gr_16, gr_b), _rel_l2(gr_b2, gr_b)
+    bias = max(float(gr_16[n].abs().max()) for n in gr_16 if n not in gr_b)
+    top = max(float(t.abs().max()) for t in gr_b.values())
+    say(f"batch vs batch_bf16 step ({base.experiment_name}, full width, {base.compute_dtype}, "
+        f"augmentation on, one state, noise and augmentation draw): worst loss relative "
+        f"difference {worst:.3e} (tol {BF16_STEP_LOSS_TOL:g}); gradients of the shared "
+        f"parameters, relative L2 {rel:.3e} (batch vs batch again {noise:.3e}; tol 3x that + "
+        f"1e-3); batch_bf16's conv-bias gradients at most {bias:.3e} (largest gradient entry "
+        f"{top:.3e})")
+    if set(ld_16) != set(ld_b) or not worst <= BF16_STEP_LOSS_TOL or \
+            not rel <= 3 * noise + 1e-3:
+        fail("the batch_bf16 step disagrees with the batch step")
+    return {"loss_rel": worst, "grad_rel_l2": rel, "grad_noise": noise}
+
+
+def phase_batch_bf16():
+    """`phiseg_7_5_synth` at full width with norm="batch_bf16" through the
+    Trainer, in turns with norm="batch" (batch, bf16, bf16, batch), and one
+    step of each from one state. Returns the first batch_bf16 run's launches."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.experiments import get_experiment
+
+    base = get_experiment(EXPERIMENT).replace(tensorboard_update_frequency=1)
+    say(f"batch_bf16: {EXPERIMENT} R={base.resolution_levels} L={base.latent_levels} "
+        f"n0={base.n0} {base.image_size} batch {base.batch_size} {base.compute_dtype}, "
+        f"augmentation on; {BF16_STEPS} Trainer steps per run, norms in turns")
+    meds, launches = {"batch": [], "batch_bf16": []}, None
+    for i, norm in enumerate(("batch", "batch_bf16", "batch_bf16", "batch")):
+        got, med = _bf16_norm_run(base.replace(norm=norm),
+                                  os.path.join(OUT_DIR, "batch_bf16", f"{i}_{norm}"))
+        meds[norm].append(med)
+        if norm == "batch_bf16" and launches is None:
+            launches = got
+    say(f"batch_bf16 time: median step batch {', '.join(f'{m:.3f}' for m in meds['batch'])} ms, "
+        f"batch_bf16 {', '.join(f'{m:.3f}' for m in meds['batch_bf16'])} ms (runs in turns "
+        f"batch, bf16, bf16, batch; each step synchronised for its log line)")
+    x, s = get_dataset(base).train.next_batch(base.batch_size)
+    x = torch.from_numpy(x).cuda()
+    s = torch.from_numpy(s.astype(np.uint8)).cuda()
+    step = _batch_vs_batch_bf16_step(base, x, s)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "median_step_ms": meds, "step": step}
+
+
+def _read_bytes(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def phase_jax_resume():
+    """The committed phiseg_tpu log dirs carried on by the port's Trainer on
+    the card from step JAX_RESUME_STEP to each case's step, f32, TF32 off:
+    a kernel step against plain steps from the resumed state; each run's
+    step, launches, losses and checkpoint files; the DetUNets' losses
+    against the JAX Trainer's resumed runs. Returns each run's launches."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine.config import ExperimentConfig
+    from phiseg_tpu_torch.engine.trainer import Trainer
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on")
+    out = {}
+    for name, (to, expected_file) in JAX_RESUME_CASES.items():
+        log_dir = os.path.join(OUT_DIR, "jax_resume", name)
+        shutil.copytree(os.path.join(ROOT, JAX_RESUME_FIXTURE, name), log_dir)
+        kept = {f: _read_bytes(os.path.join(log_dir, f))
+                for f in ("config.json", f"model.ckpt-{JAX_RESUME_STEP}.msgpack")}
+        cfg = ExperimentConfig.load(os.path.join(log_dir, "config.json"))
+        trainer = Trainer(cfg, log_dir=log_dir)
+        resumed = (trainer.resumed_from, trainer.init_step, len(trainer.state.optimizer.state))
+        # the kernels against the plain CE at this run's shapes, from its resumed state
+        x, s = get_dataset(cfg).train.next_batch(cfg.batch_size)
+        x, s = torch.from_numpy(x).cuda(), torch.from_numpy(s.astype(np.uint8)).cuda()
+        head = "likelihood.out" if cfg.model_family == "phiseg" else "likelihood.prediction"
+        _kernel_vs_plain_step(cfg, x, s, head=head, loss_tol=KERNEL_STEP_LOSS_TOL,
+                              init=trainer.state.model.state_dict())
+        frce.reset_launch_counts()
+        trainer.train(get_dataset(cfg), to)
+        torch.cuda.synchronize()
+        launches = dict(frce.LAUNCHES)
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            recs = [r for r in map(json.loads, f) if "batch_total_loss" in r]
+        new = [r for r in recs if r["step"] >= JAX_RESUME_STEP]
+        # the Trainer validates at the steps after the first that the frequency divides
+        n_vals = sum(1 for st in range(JAX_RESUME_STEP + 1, to)
+                     if st % cfg.validation_frequency == 0)
+        want_k1 = (to - JAX_RESUME_STEP
+                   + n_vals * _validation_k1(cfg, min(cfg.synth_n_val,
+                                                      int(cfg.num_validation_images))))
+        files_kept = all(_read_bytes(os.path.join(log_dir, f)) == b for f, b in kept.items())
+        pt = os.path.exists(os.path.join(log_dir, f"model.ckpt-{to}.pt"))
+        finite = all(math.isfinite(r["batch_total_loss"]) for r in new)
+        say(f"jax resume {name}: {JAX_RESUME_FIXTURE}/{name} ({cfg.model_family}, R="
+            f"{cfg.resolution_levels} L={cfg.latent_levels} n0={cfg.n0} {cfg.image_size} "
+            f"{cfg.compute_dtype}) resumed from {resumed[0]} at step {resumed[1]} with Adam state "
+            f"for {resumed[2]} parameters, trained to {trainer.state.step}: losses "
+            f"{[round(r['batch_total_loss'], 6) for r in new]} (steps "
+            f"{[r['step'] for r in new]}), all finite {finite}; launches {launches} (K1 = "
+            f"{to - JAX_RESUME_STEP} steps + {n_vals} validation(s)); .pt latest at "
+            f"{to} {pt}; config.json and the .msgpack unchanged {files_kept}")
+        if resumed[:2] != ((JAX_RESUME_STEP, ".msgpack"), JAX_RESUME_STEP) or not resumed[2]:
+            fail(f"jax resume {name}: resumed {resumed}")
+        if [r["step"] for r in new] != list(range(JAX_RESUME_STEP, to)) or \
+                not finite or not pt or not files_kept or trainer.state.step != to:
+            fail(f"jax resume {name}: steps, losses or checkpoint files wrong")
+        if launches["fused_residual_ce_fwd"] != want_k1 or launches["fused_residual_ce_dp"] or \
+                launches["fused_residual_ce_bwd"] != to - JAX_RESUME_STEP:
+            fail(f"jax resume {name}: launches {launches}, not K1 x {want_k1} and K2 x "
+                 f"{to - JAX_RESUME_STEP}")
+        gap = None
+        if expected_file is not None:
+            with np.load(os.path.join(ROOT, JAX_RESUME_FIXTURE, expected_file)) as f:
+                expected = dict(f)
+            keys = [k for k in expected if k != "steps"]
+            gap = max(abs(r[k] - expected[k][i]) / abs(expected[k][i])
+                      for k in keys for i, r in enumerate(new))
+            say(f"jax resume {name}: losses of steps {list(expected['steps'])} vs the JAX "
+                f"Trainer's resumed run ({expected_file}, CPU): worst relative gap {gap:.3e} "
+                f"(tol {JAX_RESUME_RTOL:g}, as tests/test_torch_resume.py holds the CPU)")
+            if list(expected["steps"]) != [r["step"] for r in new] or gap > JAX_RESUME_RTOL:
+                fail(f"the resumed {name}'s losses on the card disagree with the JAX Trainer's")
+        out[name] = {"launches": launches, "loss_gap": gap}
+        del trainer
+    return out
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2736,6 +2996,8 @@ def main() -> None:
                    FAMILY_EXPERIMENTS[0]: fam[FAMILY_EXPERIMENTS[0]]["log_dir"]})
     lidc = phase_lidc()
     phase_jax_checkpoint()
+    bf16 = phase_batch_bf16()
+    resumed = phase_jax_resume()
 
     import torch
 
@@ -2775,7 +3037,11 @@ def main() -> None:
              "launches_profiled_run": prof["launches"][f"fused_residual_ce_{k}"],
              "launches_in_profiled_window_trace": prof["k1" if k == "fwd" else "k2"],
              # phase 18: the registry's LIDC experiments, per run
-             "launches_lidc": {n: r[f"fused_residual_ce_{k}"] for n, r in lidc.items()}})
+             "launches_lidc": {n: r[f"fused_residual_ce_{k}"] for n, r in lidc.items()},
+             # phase 20: a batch_bf16 run; phase 21: each phiseg_tpu run carried on
+             "launches_batch_bf16": bf16["launches"][f"fused_residual_ce_{k}"],
+             "launches_jax_resume": {n: r["launches"][f"fused_residual_ce_{k}"]
+                                     for n, r in resumed.items()}})
     # K3 on one rank: K1 over its shard (the all_reduce moves L floats)
     b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels // DP_WORLD, cfg.nlabels, False))
     kernels.append(
@@ -2784,7 +3050,10 @@ def main() -> None:
          "launches": dp_outs[0]["launches"]["fused_residual_ce_dp"], "max_abs_err": k3_err,
          "ms": dp_outs[0]["k3_ms"], "plain_ms": dp_outs[0]["k3_plain_ms"],
          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-         "launches_lidc": {n: r["fused_residual_ce_dp"] for n, r in lidc.items()}})
+         "launches_lidc": {n: r["fused_residual_ce_dp"] for n, r in lidc.items()},
+         "launches_batch_bf16": bf16["launches"]["fused_residual_ce_dp"],
+         "launches_jax_resume": {n: r["launches"]["fused_residual_ce_dp"]
+                                 for n, r in resumed.items()}})
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,15 @@ The trainer validates every `validation_frequency` steps, keeps the
 `latest` and `best_dice` / `best_loss` / `best_ged` / `best_ncc` checkpoints
 and `best_metrics.json` in the log dir, and saves `latest` when it ends. A
 run in a log dir that holds a `latest` checkpoint resumes from its step, up
-to `--num-iter`; `--no-resume` starts from step 0 instead.
+to `--num-iter`; `--no-resume` starts from step 0 instead. The checkpoint
+may be the port's `.pt` or the `.msgpack` of a run that phiseg_tpu trained:
+
+  python -m phiseg_tpu_torch.cli.train <jax_log_dir>/config.json --log-dir <jax_log_dir>
+
+carries that run on from its step (weights, batch-norm statistics, Adam
+state), writes `.pt` checkpoints beside the `.msgpack` ones (which stay as
+they are) and appends to its `metrics.jsonl`. The config must hold the
+model of the log dir's config.json, or the run raises naming the field.
 `python -m phiseg_tpu_torch.cli.test_quantitative <log_dir>` then scores
 the `best_ged` checkpoint.
 

@@ -19,6 +19,15 @@ buffer of the same scope path:
   .../proj/{kernel,bias}  -> .../proj.{weight,bias}   (ResidualUnit's 1x1 shortcut)
   .../Dense_0/kernel (in, out) -> .../Dense_0.weight (out, in)   (Dense)
   .../Dense_0/bias        -> .../Dense_0.bias
+  .../conv_d/kernel (HWIO) -> .../conv_d.weight (OIHW)  (DilatedConvBlock)
+  .../conv3d/kernel (DHWIO) -> .../conv3d.weight (OIDHW) (Conv3DBlock)
+  .../conv_t/kernel (HWIO) -> .../conv_t.weight (IOHW), flipped in space
+                             (TransposedConvBlock: flax correlates the
+                             dilated input with the kernel as stored, torch's
+                             ConvTranspose2d with the flipped kernel)
+  .../conv_t3d/kernel (DHWIO) -> .../conv_t3d.weight (IODHW), flipped in space
+                             (TransposedConv3DBlock)
+  .../{conv_d,conv3d,conv_t,conv_t3d}/bias -> .../<scope>.bias
 
 It raises on a Flax leaf that maps to nothing in the model, on a model
 entry that no Flax leaf fills, and on two leaves that fill one entry. Each
@@ -66,7 +75,13 @@ _LEAF_NAMES = {
     ("params", "proj", "bias"): "proj.bias",
     ("params", "Dense_0", "kernel"): "Dense_0.weight",
     ("params", "Dense_0", "bias"): "Dense_0.bias",
+    **{("params", scope, leaf): f"{scope}.{name}"
+       for scope in ("conv_d", "conv3d", "conv_t", "conv_t3d")
+       for leaf, name in (("kernel", "weight"), ("bias", "bias"))},
 }
+# scopes of transposed convolutions: their kernels are flipped in space and
+# keep (in, out) in torch's layout
+_TRANSPOSED = {"conv_t", "conv_t3d"}
 # leaves that sit directly in a ConvBlock's scope (instance norm)
 _BLOCK_LEAVES = {("params", "in_scale"), ("params", "in_offset")}
 
@@ -77,6 +92,18 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield from _leaves(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), np.asarray(v)
+
+
+def _torch_layout(arr: np.ndarray, scope: str) -> np.ndarray:
+    """A Flax kernel in torch's layout: (*K, in, out) -> (out, in, *K) for a
+    convolution, (in, out, *K) with K reversed for a transposed one;
+    Dense's (in, out) -> (out, in); anything else as it is."""
+    n = arr.ndim
+    if n >= 3 and scope in _TRANSPOSED:
+        return arr[(slice(None, None, -1),) * (n - 2)].transpose(n - 2, n - 1, *range(n - 2))
+    if n >= 3:
+        return arr.transpose(n - 1, n - 2, *range(n - 2))
+    return arr.T if n == 2 else arr
 
 
 def _convert_collection(tree: Mapping, collection: str,
@@ -94,10 +121,7 @@ def _convert_collection(tree: Mapping, collection: str,
         if name not in want:
             raise KeyError(f"Flax leaf {collection}/{'/'.join(path)} -> {name!r}, "
                            "which the model does not have")
-        if arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-        elif arr.ndim == 2:
-            arr = arr.T  # Dense (in, out) -> Linear (out, in)
+        arr = _torch_layout(arr, path[-2] if len(path) >= 2 else "")
         if name in out:
             raise KeyError(f"two Flax leaves fill {name!r}")
         t = torch.from_numpy(np.array(arr, order="C")).to(want[name].dtype)

@@ -34,6 +34,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from phiseg_tpu_torch.data.batch_provider import canonicalise_aug_options
+from phiseg_tpu_torch.nn.layers import resize_matrix
 from phiseg_tpu_torch.nn.losses import one_hot
 
 
@@ -80,22 +81,9 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
 def bicubic_resize_matrix(in_size: int, out_size: int,
                           device: Optional[torch.device] = None) -> torch.Tensor:
     """(out_size, in_size) f32 weights W with resize(v) = W @ v along one
-    axis, as jax.image.resize(method="bicubic") builds them for an upsample
-    (jax/_src/image/scale.py compute_weight_mat, translation 0): sample
-    positions at half-pixel centres, each row renormalised over the input
-    taps, rows whose position falls outside [-0.5, in_size - 0.5] zeroed."""
-    if out_size < in_size:
-        raise ValueError("only upsampling (the elastic field's 3 -> H) is implemented")
-    inv_scale = in_size / out_size
-    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
-    taps = torch.arange(in_size, dtype=torch.float32, device=device)
-    weights = _keys_cubic(sample[:, None] - taps[None, :])
-    total = weights.sum(dim=1, keepdim=True)
-    weights = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
-                          weights / torch.where(total != 0, total, torch.ones_like(total)),
-                          torch.zeros_like(weights))
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return torch.where(inside[:, None], weights, torch.zeros_like(weights))
+    axis, as jax.image.resize(method="bicubic") builds them
+    (nn.layers.resize_matrix with Keys' kernel)."""
+    return resize_matrix(in_size, out_size, _keys_cubic, device)
 
 
 @functools.lru_cache(maxsize=16)

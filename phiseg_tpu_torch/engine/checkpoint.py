@@ -16,8 +16,10 @@ floats, strings, lists and dicts, read back with
 
 `load_tag` also reads the checkpoints that phiseg_tpu writes in its log
 dirs, `model*.ckpt-<step>.msgpack` (flax msgpack of the whole TrainState),
-through engine/msgpack_reader.py and convert.flax_train_state_to_port; the
-Trainer resumes from `.pt` files only.
+through engine/msgpack_reader.py and convert.flax_train_state_to_port, so
+the Trainer resumes a run that phiseg_tpu trained. A CheckpointManager
+writes, lists, prunes and archives `.pt` files only: the `.msgpack` files
+of such a log dir stay as they are.
 
 A save publishes atomically (tmp + os.replace). The port's train step updates
 the parameters IN PLACE, where a JAX state is immutable, so every save works
@@ -297,22 +299,36 @@ class CheckpointManager:
         return state, step
 
 
-def load_tag(state, log_dir: str, tag: str = "latest"):
-    """Load the newest checkpoint of `tag` in log_dir into the TrainState
-    `state` in place, from the port's `.pt` or phiseg_tpu's `.msgpack`,
-    whichever holds the newer step. Raises if that step exists in both
-    formats, or if neither holds the tag. Returns (state, step)."""
+def newest_checkpoint(log_dir: str, tag: str = "latest") -> Optional[Tuple[int, str]]:
+    """(step, suffix) of the newest checkpoint of `tag` in log_dir, the
+    port's `.pt` or phiseg_tpu's `.msgpack`; None if neither holds the tag.
+    Raises if that step exists in both formats."""
     if tag not in TAGS:
         raise ValueError(f"unknown checkpoint tag: {tag!r} (known: {TAGS})")
     pt, jx = list_steps(log_dir, tag), list_steps(log_dir, tag, JAX_SUFFIX)
     if not pt and not jx:
-        raise FileNotFoundError(f"no '{tag}' checkpoint in {log_dir}")
+        return None
     step = max(pt + jx)
     if step in pt and step in jx:
         raise ValueError(f"'{tag}' at step {step} is in {log_dir} as both {SUFFIX} and "
                          f"{JAX_SUFFIX}; remove one")
-    if step in pt:
-        return CheckpointManager(log_dir).restore(state, tag, step)
+    return step, SUFFIX if step in pt else JAX_SUFFIX
+
+
+def load_tag(state, log_dir: str, tag: str = "latest",
+             generator: Optional[torch.Generator] = None):
+    """Load the newest checkpoint of `tag` in log_dir into the TrainState
+    `state` in place, from the port's `.pt` or phiseg_tpu's `.msgpack`,
+    whichever holds the newer step (`newest_checkpoint`), and a `.pt`'s
+    generator state into `generator` if one is given (a `.msgpack` holds
+    none). Raises if that step exists in both formats, or if neither holds
+    the tag. Returns (state, step)."""
+    found = newest_checkpoint(log_dir, tag)
+    if found is None:
+        raise FileNotFoundError(f"no '{tag}' checkpoint in {log_dir}")
+    step, suffix = found
+    if suffix == SUFFIX:
+        return CheckpointManager(log_dir).restore(state, tag, step, generator=generator)
     from phiseg_tpu_torch.convert import flax_train_state_to_port
     from phiseg_tpu_torch.engine.msgpack_reader import msgpack_restore
 

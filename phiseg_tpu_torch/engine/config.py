@@ -39,6 +39,13 @@ def preproc_root() -> str:
     return os.environ.get("PHISEG_PREPROC_ROOT", os.path.join(os.getcwd(), "preproc"))
 
 
+# The fields that fix what a checkpoint holds: the model's parameters and
+# buffers and the optimiser's state. A run resumes a log dir only with the
+# values its config.json holds for them (engine/trainer.py).
+CHECKPOINT_FIELDS = ("model_family", "latent_levels", "resolution_levels", "n0", "zdim0",
+                     "norm", "image_size", "nlabels", "optimizer")
+
+
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     """All hyperparameters of one experiment (ref phiseg/experiments/phiseg_7_5.py)."""
@@ -173,8 +180,12 @@ class ExperimentConfig:
         return cls(**d)
 
     def save(self, path: str) -> None:
-        with open(path, "w") as f:
+        """Write to_json() to `path`, published atomically (tmp + os.replace):
+        a reader never sees half a file."""
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w") as f:
             f.write(self.to_json())
+        os.replace(tmp, path)
 
     @classmethod
     def load(cls, path: str) -> "ExperimentConfig":

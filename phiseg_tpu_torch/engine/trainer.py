@@ -16,9 +16,16 @@ eval-mode batch losses of one validation batch and of the next batch of the
 training stream (as the JAX trainer does, that batch is not trained on),
 Dice, GED^2, S_NCC and the ELBO over the validation images, saves the best_dice / best_loss / best_ged / best_ncc checkpoints
 that improved, and writes the diagnostics. A run resumes from the newest
-`latest` checkpoint by the state's own step, with the trainer's noise
-generator where it was; the final state is saved as `latest` when the loop
-ends normally. Checkpoint writes go through an ordered writer thread
+`latest` checkpoint by the state's own step: the port's `.pt`, with the
+trainer's noise generator where it was, or the `.msgpack` of a run that
+phiseg_tpu's Trainer wrote (weights, batch-norm statistics, optax's Adam or
+momentum state, step; engine/checkpoint.load_tag), which holds no torch
+generator, so the generator is seeded from the step. The run then writes
+`.pt` checkpoints beside the `.msgpack` ones, which it never prunes or
+rewrites. A resume requires the config's CHECKPOINT_FIELDS to equal those of
+the log dir's config.json; config.json is rewritten only when the config
+differs from it. The final state is saved as `latest` when the loop ends
+normally. Checkpoint writes go through an ordered writer thread
 (`async_checkpointing`), drained when `train` returns or raises. With
 PHISEG_PROFILE_DIR set, the steps of PHISEG_PROFILE_STEPS are traced into
 it (utils/profiling.py; JAX trainer.py:206-225).
@@ -31,8 +38,9 @@ posterior noise come from a generator seeded per rank, the losses are global
 means, and only rank 0 writes config.json, TensorBoard, `metrics.jsonl` and
 checkpoints, and validates; the other ranks take the same batch off their
 training stream and wait for rank 0 at one broadcast.
-A resumed rank 0 takes the saved generator state; the other ranks reseed
-theirs from the seed, their rank and the step.
+A rank 0 resumed from a `.pt` takes the saved generator state; the other
+ranks, and every rank resumed from a `.msgpack`, seed theirs from the seed,
+their rank and the step.
 """
 
 from __future__ import annotations
@@ -51,11 +59,14 @@ import torch
 
 from phiseg_tpu_torch.data.augment_device import make_augment_fn
 from phiseg_tpu_torch.engine.checkpoint import (
+    JAX_SUFFIX,
     CheckpointManager,
     host_snapshot,
+    load_tag,
+    newest_checkpoint,
     write_metrics_jsonl,
 )
-from phiseg_tpu_torch.engine.config import ExperimentConfig, log_root
+from phiseg_tpu_torch.engine.config import CHECKPOINT_FIELDS, ExperimentConfig, log_root
 from phiseg_tpu_torch.engine.train import (
     create_train_state,
     lr_schedule_from_dict,
@@ -122,6 +133,26 @@ def rank_seed(seed: int, rank: int) -> int:
     return (seed + 0x9E3779B9 * rank) % 2 ** 32
 
 
+def _require_same_checkpoint_fields(saved: ExperimentConfig, cfg: ExperimentConfig,
+                                    log_dir: str) -> None:
+    """Raise ValueError naming each CHECKPOINT_FIELDS entry in which `cfg`
+    differs from the config.json of the log dir it resumes."""
+    diff = [f"{f}={getattr(saved, f)!r} there, {getattr(cfg, f)!r} here"
+            for f in CHECKPOINT_FIELDS if getattr(saved, f) != getattr(cfg, f)]
+    if diff:
+        raise ValueError(f"the checkpoints in {log_dir} hold another model than this config: "
+                         + "; ".join(diff) + " (its config.json; pass resume=False or "
+                         "--no-resume to start afresh)")
+
+
+def _read_text(path: str) -> Optional[str]:
+    """The file's text, or None where there is none."""
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return f.read()
+
+
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, log_dir: Optional[str] = None,
                  device: str = "cuda", mesh=None, resume: bool = True):
@@ -130,11 +161,20 @@ class Trainer:
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.is_chief = mesh is None or mesh.rank == 0
         self.log_dir = log_dir or os.path.join(log_root(), cfg.log_dir_name, cfg.experiment_name)
+        # (step, suffix) of the `latest` checkpoint this run resumes from
+        self.resumed_from = newest_checkpoint(self.log_dir, "latest") if resume else None
+        config_path = os.path.join(self.log_dir, "config.json")
+        if self.resumed_from is not None and os.path.exists(config_path):
+            _require_same_checkpoint_fields(ExperimentConfig.load(config_path), cfg,
+                                            self.log_dir)
         if self.is_chief:
             os.makedirs(self.log_dir, exist_ok=True)
             # Config snapshot for provenance; the eval CLIs reload it
             # (ref phiseg_train.py:44-47, phiseg_test_quantitative.py:94-97).
-            cfg.save(os.path.join(self.log_dir, "config.json"))
+            # Left as it is when it holds this config's text (a phiseg_tpu
+            # log dir's file stays byte for byte).
+            if _read_text(config_path) != cfg.to_json():
+                cfg.save(config_path)
 
         self.state = create_train_state(cfg, self.device)
         rank = 0 if mesh is None else mesh.rank
@@ -146,12 +186,12 @@ class Trainer:
         self.init_step = 0
         self.best = {"dice": -1.0, "loss": np.inf, "ged": np.inf, "ncc": -1.0}
         self._best_path = os.path.join(self.log_dir, "best_metrics.json")
-        if resume and self.ckpt.has_checkpoint("latest"):
-            self.ckpt.restore(self.state, "latest",
-                              generator=self.generator if rank == 0 else None)
+        if self.resumed_from is not None:
+            load_tag(self.state, self.log_dir, "latest",
+                     generator=self.generator if rank == 0 else None)
             # resume from the state's own counter (the file name is a label)
             self.init_step = self.state.step
-            if rank:
+            if rank or self.resumed_from[1] == JAX_SUFFIX:
                 self.generator.manual_seed(rank_seed(cfg.seed + 1 + self.init_step, rank))
             log.info("resuming from step %d", self.init_step)
             # Documented deviation (cfg.persist_best_metrics): reload the best
@@ -250,8 +290,10 @@ class Trainer:
                     t_last = time.perf_counter()  # exclude validation from img/s
             # Persist the final state on normal completion only: after a
             # FloatingPointError the live state may be non-finite and must
-            # not overwrite 'latest'.
-            if self.is_chief:
+            # not overwrite 'latest'. A run that took no step from a
+            # `.msgpack` has nothing to add to it (and a `.pt` of the same
+            # step would make the tag ambiguous).
+            if self.is_chief and (self.state.step, JAX_SUFFIX) != self.resumed_from:
                 self.ckpt.save(host_snapshot(self.state, self.generator), "latest")
         finally:
             prefetch.stop()

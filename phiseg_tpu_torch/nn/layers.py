@@ -1,8 +1,8 @@
-"""Conv block, residual unit, dense layer, pooling and resizes (port of
+"""Conv blocks, residual unit, dense layer, pooling and resizes (port of
 phiseg_tpu/nn/layers.py).
 
 Convolutions run NCHW inside the modules; the public resize and pool
-functions here take NCHW too. The dtype policy is the JAX package's
+functions here take NCHW too, and the 3-D ones NCDHW where JAX takes NDHWC. The dtype policy is the JAX package's
 (layers.py:146-216): parameters are f32, the convolution runs in the compute
 dtype, the norms run in f32 (instance norm in the convolution's dtype), and
 the block's output is cast back to the compute dtype. A model made f64 (`compute_dtype="float64"` and
@@ -13,8 +13,9 @@ islands widen to f64 rather than narrow (`at_least_f32`).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -89,6 +90,130 @@ def upsample_bilinear(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return F.interpolate(x, scale_factor=factor, mode="bilinear", align_corners=False)
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    """jax.image's "linear" (bilinear, trilinear) kernel."""
+    return (1.0 - x.abs()).clamp_min(0.0)
+
+
+def resize_matrix(in_size: int, out_size: int, kernel=_triangle,
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+    """(out_size, in_size) f32 weights W with resize(v) = W @ v along one
+    axis, as jax.image.resize builds them (jax/_src/image/scale.py
+    compute_weight_mat, translation 0, antialias on): sample positions at
+    half-pixel centres; when the axis shrinks, the kernel widened by the
+    inverse scale; each row renormalised over the input taps; rows whose
+    position falls outside [-0.5, in_size - 0.5] zeroed."""
+    inv_scale = 1.0 / (out_size / in_size)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    taps = torch.arange(in_size, dtype=torch.float32, device=device)
+    dist = sample[:, None] - taps[None, :]
+    if inv_scale > 1.0:
+        dist = dist.abs() / inv_scale
+    weights = kernel(dist)
+    total = weights.sum(dim=1, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                          weights / torch.where(total != 0, total, torch.ones_like(total)),
+                          torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[:, None], weights, torch.zeros_like(weights))
+
+
+def resize_bilinear_3d(x: torch.Tensor, size: Tuple[int, int, int]) -> torch.Tensor:
+    """Trilinear resize of NCDHW to (D, H, W) as jax.image.resize(...,
+    "trilinear") (ref layers.py:348-358; JAX layers.py:364-367): one
+    `resize_matrix` per axis that changes size, so an axis that shrinks is
+    antialiased as jax.image does it, which F.interpolate's trilinear cannot.
+    The weights are f32; the product is in x's dtype."""
+    for axis, n in zip((2, 3, 4), size):
+        if x.shape[axis] != n:
+            w = resize_matrix(x.shape[axis], n, device=x.device).to(x.dtype)
+            x = torch.movedim(torch.movedim(x, axis, -1) @ w.T, -1, axis)
+    return x
+
+
+def _nearest_index(in_size: int, out_size: int, device) -> torch.Tensor:
+    """jax.image's nearest source index of each output position along one
+    axis: floor((i + 0.5) * in / out), in f32 as JAX computes it."""
+    pos = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * np.float32(in_size) \
+        / np.float32(out_size)
+    return torch.from_numpy(np.floor(pos).astype(np.int64)).to(device)
+
+
+def resize_nearest_3d(x: torch.Tensor, size: Tuple[int, int, int]) -> torch.Tensor:
+    """Nearest resize of NCDHW to (D, H, W) as jax.image.resize(...,
+    "nearest") (ref layers.py:361-376; JAX layers.py:370-373)."""
+    for axis, n in zip((2, 3, 4), size):
+        if x.shape[axis] != n:
+            x = x.index_select(axis, _nearest_index(x.shape[axis], n, x.device))
+    return x
+
+
+def upsample_bilinear_3d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Trilinear upsample of NCDHW by an integer factor (JAX layers.py:376-378)."""
+    return resize_bilinear_3d(x, tuple(n * factor for n in x.shape[2:]))
+
+
+def upsample_nearest_3d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Nearest upsample of NCDHW by an integer factor (JAX layers.py:381-383)."""
+    return resize_nearest_3d(x, tuple(n * factor for n in x.shape[2:]))
+
+
+def avg_pool_2x2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2x2/stride-2 average pooling of NCDHW with SAME padding (JAX
+    layers.py:386-388): an odd side is padded by one zero on the high edge,
+    which counts in the mean, as flax's avg_pool counts it."""
+    d, h, w = x.shape[-3:]
+    if d % 2 or h % 2 or w % 2:
+        x = F.pad(x, (0, w % 2, 0, h % 2, 0, d % 2))
+    return F.avg_pool3d(x, 2, 2)
+
+
+def max_pool_2x2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2x2/stride-2 max pooling of NCDHW with SAME padding (JAX
+    layers.py:391-392): flax pads an odd side with -inf, which is ceil_mode."""
+    return F.max_pool3d(x, 2, 2, ceil_mode=True)
+
+
+def pad_to_size(x: torch.Tensor, target_hw: Tuple[int, int]) -> torch.Tensor:
+    """Centre-pad NCHW with zeros up to (H, W), the odd pixel on the high
+    edge (ref layers.py:625-650; JAX layers.py:395-402)."""
+    h, w = x.shape[-2:]
+    th, tw = target_hw
+    if th < h or tw < w:
+        raise ValueError(f"target {target_hw} smaller than input {(h, w)}")
+    ph, pw = th - h, tw - w
+    return F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+
+
+def reshape_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """Space-to-depth "pooling" of NCHW (ref layers.py:57-67; JAX
+    layers.py:405-410): the channels of the (even row, even column) pixels,
+    then (odd, even), (even, odd), (odd, odd), the order of JAX's concat on
+    NHWC's channel axis."""
+    return torch.cat([x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2],
+                      x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], dim=1)
+
+
+# JAX's NHWC axis -> the NCHW dim that holds the same axis
+_NHWC_TO_NCHW = {0: 0, 1: 2, 2: 3, 3: 1}
+
+
+def crop_and_concat(tensors: Sequence[torch.Tensor], axis: int = -1) -> torch.Tensor:
+    """Centre-crop NCHW tensors to the smallest (H, W) among them and
+    concatenate them (ref tfwrapper/layers.py:586-622; JAX layers.py:413-427).
+
+    `axis` is JAX's, an axis of NHWC: -1 or 3 (channels, the default) is
+    NCHW's dim 1, 1 or -3 (H) dim 2, 2 or -2 (W) dim 3, 0 or -4 (batch) dim 0.
+    """
+    h = min(t.shape[2] for t in tensors)
+    w = min(t.shape[3] for t in tensors)
+    cropped = []
+    for t in tensors:
+        dh, dw = (t.shape[2] - h) // 2, (t.shape[3] - w) // 2
+        cropped.append(t[:, :, dh:dh + h, dw:dw + w])
+    return torch.cat(cropped, dim=_NHWC_TO_NCHW[axis % 4])
+
+
 def reparameterize(mu: torch.Tensor, sigma: torch.Tensor,
                    eps: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -103,7 +228,8 @@ def reparameterize(mu: torch.Tensor, sigma: torch.Tensor,
 
 
 class BatchNorm(nn.Module):
-    """Flax-semantics batch norm over (N, H, W) of an NCHW tensor, in f32.
+    """Flax-semantics batch norm over every dim but the channels' of an NCHW
+    (or NCDHW) tensor, in f32.
 
     Flax stores the BIASED batch variance in its running `var`; torch's
     BatchNorm2d stores the unbiased one. So this module updates its running
@@ -154,8 +280,9 @@ class BatchNorm(nn.Module):
         if local_n * self.mesh.world_size < 2:  # the ranks hold equal shards
             raise ValueError("batch norm in training needs > 1 value per channel")
         count = torch.full((1,), float(local_n), dtype=x.dtype, device=x.device)
+        dims = (0,) + tuple(range(2, x.dim()))
         stats = self.mesh.all_reduce_sum(
-            torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+            torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count]))
         n = stats[-1]
         mean = stats[:c] / n
         var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)  # flax clips at 0
@@ -164,7 +291,8 @@ class BatchNorm(nn.Module):
         with torch.no_grad():
             self.running_mean.mul_(1.0 - BN_MOMENTUM).add_(mean, alpha=BN_MOMENTUM)
             self.running_var.mul_(1.0 - BN_MOMENTUM).add_(var, alpha=BN_MOMENTUM)
-        return x * scale[None, :, None, None] + shift[None, :, None, None]
+        per_channel = (1, c) + (1,) * (x.dim() - 2)
+        return x * scale.view(per_channel) + shift.view(per_channel)
 
 
 def set_batch_norm_mesh(module: nn.Module, mesh) -> None:
@@ -248,10 +376,40 @@ def get_weight_init(name: str):
 # Conv block
 # ---------------------------------------------------------------------------
 
-NORMS = ("batch", "group", "layer", "renorm", "instance", "none")
+NORMS = ("batch", "batch_bf16", "group", "layer", "renorm", "instance", "none")
 
 
-class ConvBlock(nn.Module):
+class _Normalised(nn.Module):
+    """The norm of a conv block, applied to its conv's output by the block's
+    own norm modules (the Flax scopes `bn`, `gn`, `ln`, `brn`, `in_scale` /
+    `in_offset`): one dispatch for ConvBlock and the transposed, dilated and
+    3-D blocks, which accept a subset of the names (TAIL_NORMS). The
+    subclass sets `norm` and `dtype`."""
+
+    def _normalise(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm == "batch":
+            return self.bn(x)
+        if self.norm == "batch_bf16":
+            return self.bn(x).to(self.dtype)
+        if self.norm == "group":
+            x = at_least_f32(x)
+            return F.group_norm(x, self.gn.num_groups, self.gn.weight.to(x.dtype),
+                                self.gn.bias.to(x.dtype), eps=self.gn.eps)
+        if self.norm == "layer":
+            x = at_least_f32(x)
+            return self.ln(F.layer_norm(x, x.shape[1:], eps=1e-3))
+        if self.norm == "renorm":
+            return self.brn(x)
+        if self.norm == "instance":
+            mean = x.mean(dim=(2, 3), keepdim=True)
+            var = x.var(dim=(2, 3), unbiased=False, keepdim=True)
+            x = (x - mean) * torch.rsqrt(var + 1e-5)
+            scale = self.in_scale.to(x.dtype)[None, :, None, None]
+            return x * (1.0 + scale) + self.in_offset.to(x.dtype)[None, :, None, None]
+        return x
+
+
+class ConvBlock(_Normalised):
     """Conv2D + optional normalisation + activation + optional dropout
     (ref layers.py:94-145; JAX layers.py:116-216).
 
@@ -261,6 +419,10 @@ class ConvBlock(nn.Module):
     activation. The norms (ref tfwrapper/normalisation.py):
 
       batch     BatchNorm, momentum .99, eps 1e-3, in f32            (`bn`)
+      batch_bf16  the same BatchNorm (statistics and normalisation in f32,
+                the same `bn` parameters and buffers), its output cast to
+                the compute dtype before the activation, which then runs in
+                that dtype; the conv keeps its bias, as in JAX (`bn`)
       group     max(2, C // 16) groups, eps 1e-5, per-channel affine, in f32  (`gn`)
       layer     over (C, H, W), eps 1e-3, per-channel affine, in f32 (`ln`)
       renorm    BatchRenorm, in f32, output back in the conv's dtype (`brn`)
@@ -284,10 +446,6 @@ class ConvBlock(nn.Module):
                  dtype: torch.dtype = torch.float32, weight_init: str = "he_normal",
                  dropout_keep_prob: Optional[float] = None, stride: int = 1):
         super().__init__()
-        if norm == "batch_bf16":
-            raise NotImplementedError(
-                "norm 'batch_bf16' is a TPU variant the port does not carry (ROADMAP "
-                "'Not to port'); use 'batch'")
         if norm not in NORMS:
             raise ValueError(f"unknown norm: {norm!r}")
         get_weight_init(weight_init)  # unknown names raise here
@@ -297,7 +455,7 @@ class ConvBlock(nn.Module):
         self.norm = norm
         self.weight_init = weight_init
         self.dropout_keep_prob = dropout_keep_prob
-        if norm == "batch":
+        if norm in ("batch", "batch_bf16"):
             self.bn = BatchNorm(features)
         elif norm == "group":
             self.gn = nn.GroupNorm(max(2, features // 16), features, eps=1e-5)
@@ -317,7 +475,7 @@ class ConvBlock(nn.Module):
         b = None if self.conv.bias is None else self.conv.bias.to(self.dtype)
         x = x.to(self.dtype)
         if self.conv.stride != (1, 1):
-            x = F.pad(x, _same_pads(x.shape[-2:], self.conv.kernel_size, self.conv.stride))
+            x = F.pad(x, _same_pads(x.shape[2:], self.conv.kernel_size, self.conv.stride))
         x = F.conv2d(x, w, b, stride=self.conv.stride, padding=self.conv.padding)
         x = self._normalise(x)
         if self.activation is not None:
@@ -330,35 +488,35 @@ class ConvBlock(nn.Module):
                                                                          device=x.device))
         return x.to(self.dtype)
 
-    def _normalise(self, x: torch.Tensor) -> torch.Tensor:
-        if self.norm == "batch":
-            return self.bn(x)
-        if self.norm == "group":
-            x = at_least_f32(x)
-            return F.group_norm(x, self.gn.num_groups, self.gn.weight.to(x.dtype),
-                                self.gn.bias.to(x.dtype), eps=self.gn.eps)
-        if self.norm == "layer":
-            x = at_least_f32(x)
-            return self.ln(F.layer_norm(x, x.shape[1:], eps=1e-3))
-        if self.norm == "renorm":
-            return self.brn(x)
-        if self.norm == "instance":
-            mean = x.mean(dim=(2, 3), keepdim=True)
-            var = x.var(dim=(2, 3), unbiased=False, keepdim=True)
-            x = (x - mean) * torch.rsqrt(var + 1e-5)
-            scale = self.in_scale.to(x.dtype)[None, :, None, None]
-            return x * (1.0 + scale) + self.in_offset.to(x.dtype)[None, :, None, None]
-        return x
 
-
-def _same_pads(hw, kernel, stride) -> Tuple[int, int, int, int]:
-    """F.pad's (left, right, top, bottom) of XLA's SAME padding: the output
-    side is ceil(in / stride) and the low edge gets the smaller half."""
+def _same_pads(sizes, kernel, stride, dilation=None) -> Tuple[int, ...]:
+    """F.pad's pads (last dim first, low edge then high) of XLA's SAME
+    padding of a convolution over `sizes`: the output side is
+    ceil(in / stride) and the low edge gets the smaller half. A dilated
+    kernel counts by its extent (k - 1) * dilation + 1."""
     pads = []
-    for n, k, st in zip(hw, kernel, stride):
+    for n, k, st, d in zip(sizes, kernel, stride, dilation or (1,) * len(sizes)):
+        k = (k - 1) * d + 1
         total = max((-(-n // st) - 1) * st + k - n, 0)
         pads.append((total // 2, total - total // 2))
-    return pads[1] + pads[0]
+    return tuple(p for pair in reversed(pads) for p in pair)
+
+
+def _transposed_same_pads(kernel, stride) -> Tuple[int, ...]:
+    """F.pad's pads (last dim first; negative crops) that turn the output of
+    F.conv_transposeNd(padding=0) into that of lax.conv_transpose with SAME
+    padding, as flax's ConvTranspose calls it. Both correlate the
+    stride-dilated input with the kernel; torch pads the dilated input by
+    k - 1 on each side, lax by (a, k + s - 2 - a) with a = k - 1 when
+    s > k - 1, else ceil((k + s - 2) / 2) (jax/_src/lax/convolution.py
+    _conv_transpose_padding). With k = 3, s = 2 that is (2, 1), which no
+    `padding` / `output_padding` pair of torch's gives."""
+    pads = []
+    for k, st in zip(kernel, stride):
+        total = k + st - 2
+        lo = k - 1 if st > k - 1 else -(-total // 2)
+        pads.append((lo - (k - 1), total - lo - (k - 1)))
+    return tuple(p for pair in reversed(pads) for p in pair)
 
 
 class ResidualUnit(nn.Module):
@@ -411,6 +569,132 @@ class Dense(nn.Module):
         return self.activation(x) if self.activation is not None else x
 
 
+TAIL_NORMS = ("batch", "group", "none")
+
+
+class _ConvNormAct(_Normalised):
+    """A convolution in the compute dtype, then the shared norm-and-activation
+    tail of JAX's transposed, dilated and 3-D blocks (JAX layers.py:311-323,
+    `_norm_act`): norm batch (`bn`, f32) or group (`gn`, max(2, C // 16)
+    groups, eps 1e-5, f32) or none, the activation, the output in the
+    compute dtype. The conv has a bias unless norm is batch. Subclasses set
+    `self.<scope>` to their torch conv module and `_conv` to the forward of
+    the convolution without its bias."""
+
+    scope = ""
+
+    def __init__(self, conv: nn.Module, features: int, activation: Activation, norm: str,
+                 dtype: torch.dtype):
+        super().__init__()
+        if norm not in TAIL_NORMS:
+            raise ValueError(f"unknown norm: {norm!r}")
+        self.add_module(self.scope, conv)
+        if norm == "batch":
+            self.bn = BatchNorm(features)
+        elif norm == "group":
+            self.gn = nn.GroupNorm(max(2, features // 16), features, eps=1e-5)
+        self.norm = norm
+        self.activation = activation
+        self.dtype = dtype
+
+    @property
+    def conv_module(self) -> nn.Module:
+        return getattr(self, self.scope)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.conv_module
+        x = self._conv(x.to(self.dtype), conv.weight.to(self.dtype))
+        if conv.bias is not None:
+            x = x + conv.bias.to(self.dtype).view(-1, *([1] * (x.dim() - 2)))
+        x = self._normalise(x)
+        if self.activation is not None:
+            x = self.activation(x)
+        return x.to(self.dtype)
+
+
+class TransposedConvBlock(_ConvNormAct):
+    """Transposed (fractionally strided) conv + norm + activation, NCHW (ref
+    layers.py:197-257; JAX layers.py:219-237): 4x4 kernel, stride 2 by
+    default, SAME padding as lax.conv_transpose pads it (the output side is
+    in * stride). `conv_t` is a ConvTranspose2d, whose (in, out, kh, kw)
+    weight is Flax's (kh, kw, in, out) kernel flipped in space
+    (phiseg_tpu_torch/convert.py)."""
+
+    scope = "conv_t"
+
+    def __init__(self, in_features: int, features: int, kernel_size=4, stride=2,
+                 activation: Activation = F.relu, norm: str = "none",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(nn.ConvTranspose2d(in_features, features, kernel_size, stride=stride,
+                                            bias=norm != "batch"),
+                         features, activation, norm, dtype)
+
+    def _conv(self, x, w):
+        conv = self.conv_t
+        return F.pad(F.conv_transpose2d(x, w, stride=conv.stride),
+                     _transposed_same_pads(conv.kernel_size, conv.stride))
+
+
+class DilatedConvBlock(_ConvNormAct):
+    """Atrous conv + norm + activation, NCHW (ref layers.py:378-425; JAX
+    layers.py:240-260): 3x3 kernel at dilation `rate`, stride 1, SAME
+    padding over the dilated extent. Scope `conv_d`."""
+
+    scope = "conv_d"
+
+    def __init__(self, in_features: int, features: int, kernel_size=3, rate: int = 2,
+                 activation: Activation = F.relu, norm: str = "none",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(nn.Conv2d(in_features, features, kernel_size, dilation=rate,
+                                   bias=norm != "batch"),
+                         features, activation, norm, dtype)
+
+    def _conv(self, x, w):
+        conv = self.conv_d
+        x = F.pad(x, _same_pads(x.shape[2:], conv.kernel_size, (1, 1), conv.dilation))
+        return F.conv2d(x, w, dilation=conv.dilation)
+
+
+class Conv3DBlock(_ConvNormAct):
+    """3-D conv + norm + activation, NCDHW (ref layers.py:148-194; JAX
+    layers.py:291-308): 3x3x3 kernel, SAME padding as XLA pads it, also
+    with stride 2. Scope `conv3d`."""
+
+    scope = "conv3d"
+
+    def __init__(self, in_features: int, features: int, kernel_size=3, stride=1,
+                 activation: Activation = F.relu, norm: str = "none",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(nn.Conv3d(in_features, features, kernel_size, stride=stride,
+                                   bias=norm != "batch"),
+                         features, activation, norm, dtype)
+
+    def _conv(self, x, w):
+        conv = self.conv3d
+        x = F.pad(x, _same_pads(x.shape[2:], conv.kernel_size, conv.stride))
+        return F.conv3d(x, w, stride=conv.stride)
+
+
+class TransposedConv3DBlock(_ConvNormAct):
+    """3-D transposed conv + norm + activation, NCDHW (ref layers.py:260-323;
+    JAX layers.py:341-361): 4x4x4 kernel, stride 2 by default, padded as
+    TransposedConvBlock. Scope `conv_t3d`, a ConvTranspose3d."""
+
+    scope = "conv_t3d"
+
+    def __init__(self, in_features: int, features: int, kernel_size=4, stride=2,
+                 activation: Activation = F.relu, norm: str = "none",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(nn.ConvTranspose3d(in_features, features, kernel_size, stride=stride,
+                                            bias=norm != "batch"),
+                         features, activation, norm, dtype)
+
+    def _conv(self, x, w):
+        conv = self.conv_t3d
+        return F.pad(F.conv_transpose3d(x, w, stride=conv.stride),
+                     _transposed_same_pads(conv.kernel_size, conv.stride))
+
+
 class _ChannelAffine(nn.Module):
     """Per-channel scale and bias of an NCHW tensor, in its dtype (Flax
     LayerNorm's parameters with feature_axes=-1)."""
@@ -431,8 +715,8 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     is a normal truncated at two standard deviations), zero conv biases, and
     instance norm's in_scale from N(0, 0.02) with in_offset 0. The other
     norms keep scale 1 and bias 0, running mean 0 and variance 1. A
-    ResidualUnit's projection and a Dense layer get he_normal and a zero
-    bias."""
+    ResidualUnit's projection, a Dense layer and the convolution of a
+    transposed, dilated or 3-D block get he_normal and a zero bias."""
     for m in module.modules():
         if isinstance(m, (ResidualUnit, Dense)):
             layer = m.Dense_0 if isinstance(m, Dense) else m.proj
@@ -440,6 +724,14 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 WEIGHT_INITS["he_normal"](layer.weight, generator)
                 with torch.no_grad():
                     layer.bias.zero_()
+        if isinstance(m, _ConvNormAct):
+            w = m.conv_module.weight
+            if isinstance(m, (TransposedConvBlock, TransposedConv3DBlock)):
+                w = w.transpose(0, 1)  # (in, out, ...): Flax's fan_in counts `in`
+            WEIGHT_INITS["he_normal"](w, generator)
+            if m.conv_module.bias is not None:
+                with torch.no_grad():
+                    m.conv_module.bias.zero_()
         if isinstance(m, ConvBlock):
             get_weight_init(m.weight_init)(m.conv.weight, generator)
             with torch.no_grad():

@@ -97,10 +97,21 @@ def test_conv_block_bf16_dtype_policy():
 
 
 def test_conv_block_rejects_unported_norms():
-    """batch_bf16, the TPU variant the port does not carry, raises; the other
-    norms are held against JAX in tests/test_torch_norms.py."""
-    with pytest.raises(NotImplementedError, match="batch_bf16"):
-        tl.ConvBlock(3, 4, norm="batch_bf16")
+    """No norm of the JAX ConvBlock is left unported: batch_bf16 builds with
+    batch's `bn` parameters and buffers and, as in JAX (use_bias = norm !=
+    "batch"), a conv bias, and its parity with flax is held in
+    tests/test_torch_blocks.py; a name the JAX ConvBlock does not know
+    raises ValueError with JAX's words. The other norms are held against
+    JAX in tests/test_torch_norms.py."""
+    x, jmod, variables, tmod = _pair("batch", "relu")
+    blk = tl.ConvBlock(3, 8, norm="batch_bf16")
+    assert sorted(blk.state_dict()) == sorted([*tmod.state_dict(), "conv.bias"])
+    blk.load_state_dict({**flax_to_state_dict(variables, tmod), "conv.bias": torch.zeros(8)})
+    blk.eval()
+    np.testing.assert_allclose(to_nhwc(blk(to_nchw(x))),
+                               np.asarray(jmod.apply(variables, jnp.asarray(x))), **TOL)
+    with pytest.raises(ValueError, match="unknown norm: 'batch_f16'"):
+        tl.ConvBlock(3, 4, norm="batch_f16")
 
 
 @pytest.mark.parametrize("hw", [(8, 8), (7, 5)])

@@ -152,3 +152,15 @@ def test_segvae_size_check_and_every_family_builds(family):
 def test_aggregate_levels_sums_the_levels():
     a, b, c = torch.ones(2), torch.full((2,), 2.0), torch.full((2,), 3.0)
     assert torch.equal(aggregate_levels([a, b, c]), torch.full((2,), 6.0))
+
+
+@pytest.mark.parametrize("package", ["engine", "models"])
+def test_package_exports_what_jax_exports(package):
+    """phiseg_tpu_torch.engine and .models export phiseg_tpu.engine's and
+    .models' names, each defined."""
+    import importlib
+
+    jax_pkg = importlib.import_module(f"phiseg_tpu.{package}")
+    port_pkg = importlib.import_module(f"phiseg_tpu_torch.{package}")
+    assert port_pkg.__all__ == jax_pkg.__all__
+    assert all(hasattr(port_pkg, n) for n in port_pkg.__all__)

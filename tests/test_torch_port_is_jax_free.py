@@ -2,8 +2,10 @@
 flax, optax, the JAX package, h5py or msgpack fails (the card's machine has
 none of them), every module of phiseg_tpu_torch imports, and one CPU train
 step (with on-device augmentation), one validation, a checkpoint save and
-restore, and a load of the committed phiseg_tpu checkpoint
-(tests/data/jax_checkpoint_small) run."""
+restore, a load of the committed phiseg_tpu checkpoint
+(tests/data/jax_checkpoint_small) and the Trainer's resume of the committed
+phiseg_tpu log dirs (tests/data/jax_logdir_resume) run, and the CUDA
+library is neither built nor loaded."""
 
 import os
 import subprocess
@@ -15,7 +17,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "phiseg_tpu", "h5py", "msgpack")
 for name in BLOCKED:
     sys.modules[name] = None  # any import of these now raises ImportError
@@ -64,6 +66,22 @@ with tempfile.TemporaryDirectory() as d:
     probs = make_sample_fn(model, exp["probs"].shape[0])(torch.from_numpy(exp["x"]), eps=eps)
     assert jstep == jstate.step > 0 and jstate.optimizer.state
     assert np.allclose(probs.numpy(), exp["probs"], rtol=1e-4, atol=1e-4)
+# the phiseg_tpu log dirs of tests/data/jax_logdir_resume, carried on by the Trainer
+from phiseg_tpu_torch.data import get_dataset
+from phiseg_tpu_torch.engine.config import ExperimentConfig
+from phiseg_tpu_torch.engine.trainer import Trainer
+for name in ("detunet", "phiseg"):
+    with tempfile.TemporaryDirectory() as d:
+        shutil.copytree("tests/data/jax_logdir_resume/" + name, d + "/log")
+        cfg = ExperimentConfig.load(d + "/log/config.json")
+        trainer = Trainer(cfg, log_dir=d + "/log", device="cpu")
+        assert trainer.resumed_from == (3, ".msgpack") and trainer.state.optimizer.state
+        trainer.train(get_dataset(cfg), num_iter=5)
+        assert trainer.state.step == 5 and os.path.exists(d + "/log/model.ckpt-5.pt")
+        assert os.path.exists(d + "/log/model.ckpt-3.msgpack")
+# importing and running the CPU path neither built nor loaded the CUDA library
+from phiseg_tpu_torch.ops import fused_residual_ce
+assert fused_residual_ce._lib is None
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED
                 and sys.modules[k] is not None)
 assert not leaked, leaked
