@@ -160,7 +160,28 @@ Phases, each fatal on failure:
      last step, the `.msgpack` and config.json unchanged; each DetUNet's
      losses within JAX_RESUME_RTOL of the JAX Trainer's resumed run
      (expected.npz, steps 3-5; expected_batches.npz, steps 3-4, the batches
-     the stream gives a resumed run).
+     the stream gives a resumed run);
+ 22. the entry points and results tools of `python -m phiseg_tpu_torch`:
+     `phiseg_train phiseg_7_5_synth` at full width for ENTRY_TRAIN_ITERS
+     steps in a subprocess (exit 0, `.pt` checkpoints, metrics.jsonl), and
+     each of the 14 names' `--help` in a subprocess with jax, flax, optax
+     and phiseg_tpu blocked; then in-process through the dispatcher:
+     test_quantitative on phase 11's ProbUNet, results_table and pair_stats
+     on it and phase 8's PHiSeg (each printed mean that of its npz array,
+     to the printed digits); ged_decomposition on the PHiSeg at phase 10's
+     samples and batch (d_sy, d_ss, d_yy within 1e-6 of phase 10's npz,
+     GED^2 = 2 d_sy - d_ss - d_yy); dyy_report on the card equal to the
+     committed artifacts/dyy_report.txt (the JAX script's output);
+     profile_step train (K1 and K2 named 10 times each in its 10-step
+     window) and sampler at B=1 and B=8, their top device ops, busy share,
+     device ms per step or image and peak memory; graft_entry.entry("cuda")
+     (a finite loss within KERNEL_STEP_LOSS_TOL of entry() with the plain
+     CE, K1 once and held against the plain CE on its inputs at phase 2's
+     tolerance) and dryrun_multichip(2) on two gloo ranks sharing the card
+     (K1, K2 and K3 3 times a rank, losses finite, the last below the
+     first), after a kernel step against plain steps at one rank's shapes
+     (64x64, n0=4, f32, batch 2), held as in phase 13. The train
+     subprocess reports its launches: K1 and K2 once a step.
 
 Spawned ranks have a join timeout; a rank that fails or hangs fails the run.
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -269,17 +290,6 @@ def device_ms(fn, iters: int = 10, warmup: int = 5, sleep_cycles: int = 200_000_
     return start.elapsed_time(end) / iters
 
 
-# a Chrome trace's device events: kernels, copies and fills
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def _trace_events(path: str):
-    """The complete ("X") events of a Chrome trace and its device events."""
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    return events, [e for e in events if e.get("cat") in DEVICE_CATS]
-
-
 def _kernel_ms(fn, iters: int = 10) -> float:
     """Milliseconds of device work per fn() call: the durations of the
     kernels, copies and fills in torch.profiler's trace of `iters` calls
@@ -289,6 +299,8 @@ def _kernel_ms(fn, iters: int = 10) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from phiseg_tpu_torch.utils.profiling import trace_events
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -297,7 +309,7 @@ def _kernel_ms(fn, iters: int = 10) -> float:
         torch.cuda.synchronize()
     path = os.path.join(OUT_DIR, "kernel_ms_trace.json")
     prof.export_chrome_trace(path)
-    _, device = _trace_events(path)
+    _, device = trace_events(path)
     os.remove(path)
     return sum(e["dur"] for e in device) / 1e3 / iters
 
@@ -2141,30 +2153,15 @@ def phase_elastic():
     return {"launches": launches, "ms": ms, "image_err": img_err}
 
 
-def _device_intervals(events):
-    """The union of the device events' [start, end) in microseconds."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for a, z in spans:
-        if cur_e is None or a > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = a, z
-        else:
-            cur_e = max(cur_e, z)
-    return total + (cur_e - cur_s if cur_e is not None else 0.0)
-
-
 def phase_profiler():
     """PROFILE_ITERS steps through the train CLI with PHISEG_PROFILE_DIR and
     PHISEG_PROFILE_STEPS: one trace of the window, read back: nonzero device
     time, K1 and K2 by their kernel names once per traced step, the window's
     device-busy share and its top device operations."""
-    import collections
-
     from phiseg_tpu_torch.cli.train import main as train_main
     from phiseg_tpu_torch.experiments import get_experiment
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
+    from phiseg_tpu_torch.utils.profiling import launches_named, summarize_trace
 
     root = os.path.join(OUT_DIR, "profile")
     prof_dir, log_dir = os.path.join(root, "trace"), os.path.join(root, "log")
@@ -2187,38 +2184,31 @@ def phase_profiler():
     if len(files) != 1 or trainer.profiler.traces != [os.path.join(prof_dir, files[0])]:
         fail(f"the profiled run wrote {files}, not one trace of its window")
     path = os.path.join(prof_dir, files[0])
-    events, device = _trace_events(path)
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    k1 = [e for e in kernels if "frce_fwd_kernel" in e["name"]]
-    k2 = [e for e in kernels if "frce_bwd_kernel" in e["name"]]
-    t_lo = min(e["ts"] for e in events)
-    t_hi = max(e["ts"] + e["dur"] for e in events)
-    busy = _device_intervals(device)
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in device:
-        by_name[e["name"]][0] += e["dur"]
-        by_name[e["name"]][1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    summary = summarize_trace(path)
+
+    def named(fragment):  # launches of the kernels whose name holds it, us each
+        n = launches_named(summary, fragment)
+        return n, sum(d for name, d, _ in summary["ops"] if fragment in name) / max(n, 1)
+
+    (k1, k1_us), (k2, k2_us) = named("frce_fwd_kernel"), named("frce_bwd_kernel")
+    window, busy = summary["window_us"], summary["busy_us"]
     say(f"profiler: {PROFILE_ITERS} steps through the train CLI with PHISEG_PROFILE_STEPS="
         f"{PROFILE_STEPS} ({traced} steps traced), {wall:.2f} s; trace {files[0]} "
-        f"({os.path.getsize(path) / 2 ** 20:.1f} MiB): {len(kernels)} kernels, device time "
-        f"{sum(e['dur'] for e in device) / 1e3:.3f} ms (kernels "
-        f"{sum(e['dur'] for e in kernels) / 1e3:.3f} ms) in a window of "
-        f"{(t_hi - t_lo) / 1e3:.3f} ms; device busy {busy / (t_hi - t_lo):.2%} of it "
-        f"({busy / 1e3 / traced:.3f} ms a step); K1 {len(k1)} launches "
-        f"({sum(e['dur'] for e in k1) / len(k1) if k1 else 0:.2f} us each), K2 {len(k2)} "
-        f"({sum(e['dur'] for e in k2) / len(k2) if k2 else 0:.2f} us each); run launches "
+        f"({os.path.getsize(path) / 2 ** 20:.1f} MiB): {summary['kernels']} kernels, device "
+        f"time {summary['device_us'] / 1e3:.3f} ms in a window of {window / 1e3:.3f} ms; "
+        f"device busy {busy / window:.2%} of it ({busy / 1e3 / traced:.3f} ms a step); K1 {k1} "
+        f"launches ({k1_us:.2f} us each), K2 {k2} ({k2_us:.2f} us each); run launches "
         f"{launches}")
-    for name, (dur, n) in top:
+    for name, dur, n in summary["ops"][:5]:
         say(f"profiler top device op: {dur / 1e3:.3f} ms in {n} calls: {name[:110]}")
-    if not busy > 0 or not kernels:
+    if not busy > 0 or not summary["kernels"]:
         fail("the profiled window holds no device time")
-    if len(k1) != traced or len(k2) != traced:
-        fail(f"the trace holds K1 {len(k1)} and K2 {len(k2)} launches, not {traced} each")
+    if k1 != traced or k2 != traced:
+        fail(f"the trace holds K1 {k1} and K2 {k2} launches, not {traced} each")
     if launches["fused_residual_ce_fwd"] != PROFILE_ITERS or \
             launches["fused_residual_ce_bwd"] != PROFILE_ITERS:
         fail(f"the profiled run launched {launches}")
-    return {"k1": len(k1), "k2": len(k2), "busy_share": busy / (t_hi - t_lo),
+    return {"k1": k1, "k2": k2, "busy_share": busy / window,
             "device_ms_per_step": busy / 1e3 / traced, "launches": launches}
 
 
@@ -2973,6 +2963,301 @@ def phase_jax_resume():
         del trainer
     return out
 
+# phase 22: the reference names and results tools of `python -m phiseg_tpu_torch`
+ENTRY_TRAIN_ITERS = 4  # (a): steps of `phiseg_train` in a subprocess
+DRYRUN_RANKS = 2       # (f): ranks of dryrun_multichip, sharing the card
+BLOCKED_IMPORTS = ("jax", "jaxlib", "flax", "optax", "phiseg_tpu")
+DYY_REPORT = os.path.join("artifacts", "dyy_report.txt")  # the JAX script's output
+
+
+def _port_process(argv):
+    """`python -m phiseg_tpu_torch <argv>` in an interpreter where jax,
+    flax, optax and phiseg_tpu cannot be imported, started (Popen). The
+    last line of its stdout is the kernels' launch counts in that process."""
+    code = ("import json, runpy, sys\n"
+            f"for m in {BLOCKED_IMPORTS!r}:\n    sys.modules[m] = None\n"
+            f"sys.argv = ['phiseg_tpu_torch', *{list(argv)!r}]\n"
+            "try:\n"
+            "    runpy.run_module('phiseg_tpu_torch', run_name='__main__', alter_sys=True)\n"
+            "finally:\n"
+            "    from phiseg_tpu_torch.ops import fused_residual_ce as frce\n"
+            "    print(json.dumps(frce.LAUNCHES), flush=True)\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=ROOT))
+
+
+def _printed_means(text: str, row_prefix: str, count: int):
+    """The first `count` numbers after `row_prefix` on its line of `text`."""
+    import re
+
+    line = next(ln for ln in text.splitlines() if ln.startswith(row_prefix))
+    return re.findall(r"nan|-?\d+\.\d+", line[len(row_prefix):])[:count]
+
+
+def _stdout_of(fn, argv):
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(argv)
+    say(buf.getvalue().rstrip("\n"))
+    return ret, buf.getvalue()
+
+
+def phase_entry_points(phiseg_log: str, probunet_log: str):
+    """The reference entry points and the results tools as a user calls them.
+    (a) `python -m phiseg_tpu_torch phiseg_train phiseg_7_5_synth` at full
+    width for ENTRY_TRAIN_ITERS steps in a subprocess (exit 0, .pt
+    checkpoints, metrics.jsonl), and every name's `--help` in a subprocess
+    with jax, flax, optax and phiseg_tpu blocked; then, in-process through
+    the dispatcher's main: (b) test_quantitative on phase 11's ProbUNet, then
+    results_table and pair_stats on the PHiSeg (phases 10, 12) and ProbUNet
+    npz, each printed mean that of its array; (c) ged_decomposition on the
+    PHiSeg at phase 10's samples and batch: d_sy, d_ss, d_yy within 1e-6 of
+    its npz, GED^2 = 2 d_sy - d_ss - d_yy; (d) dyy_report on the card equal
+    to the committed artifacts/dyy_report.txt; (e) profile_step train (K1
+    and K2 named once a step in the window) and sampler at B=1 and B=8; (f)
+    graft_entry.entry("cuda") against entry() with the plain CE, its K1
+    call against the plain CE on its inputs, and dryrun_multichip(2) on two
+    gloo ranks sharing the card (K1, K2, K3 3 times a rank, losses finite
+    and falling) after a kernel step against plain steps at one rank's
+    shapes. (a)'s train run reports its launches: K1, K2 once a step."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch import graft_entry
+    from phiseg_tpu_torch.__main__ import COMMANDS
+    from phiseg_tpu_torch.__main__ import main as dispatch
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine import objective as objective_mod
+    from phiseg_tpu_torch.experiments import get_experiment
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT_DIR, "entry_points")
+    os.makedirs(root)
+    out = {"launches": {}}
+
+    # (a) subprocesses: the train CLI by its reference name, its kernel
+    # launches read back; every --help
+    train_log = os.path.join(root, "train_log")
+    t0 = time.perf_counter()
+    helps = {name: _port_process([name, "--help"]) for name in COMMANDS}
+    train = _port_process(["phiseg_train", EXPERIMENT, "--num-iter", str(ENTRY_TRAIN_ITERS),
+                           "--log-dir", train_log])
+    stdout, stderr = train.communicate(timeout=600)
+    t_train = time.perf_counter() - t0
+    pts = sorted(f for f in os.listdir(train_log) if f.endswith(".pt")) \
+        if os.path.isdir(train_log) else []
+    has_metrics = os.path.exists(os.path.join(train_log, "metrics.jsonl"))
+    launches = json.loads(stdout.strip().splitlines()[-1]) if stdout.strip() else None
+    base = get_experiment(EXPERIMENT)
+    # the Trainer validates at the steps after the first that the frequency divides
+    n_vals = sum(1 for st in range(1, ENTRY_TRAIN_ITERS) if st % base.validation_frequency == 0)
+    want = {"fused_residual_ce_fwd": ENTRY_TRAIN_ITERS + n_vals * _validation_k1(
+                base, min(base.synth_n_val, int(base.num_validation_images))),
+            "fused_residual_ce_bwd": ENTRY_TRAIN_ITERS, "fused_residual_ce_dp": 0}
+    out["launches"]["phiseg_train"] = launches
+    say(f"entry points: python -m phiseg_tpu_torch phiseg_train {EXPERIMENT} --num-iter "
+        f"{ENTRY_TRAIN_ITERS} ({list(BLOCKED_IMPORTS)} blocked): exit {train.returncode} in "
+        f"{t_train:.2f} s; checkpoints {pts}; metrics.jsonl {has_metrics}; launches {launches} "
+        f"(want {want}: {ENTRY_TRAIN_ITERS} steps + {n_vals} validation(s))")
+    if train.returncode != 0 or not pts or not has_metrics:
+        say(stderr[-3000:])
+        fail("phiseg_train through `python -m phiseg_tpu_torch` did not train")
+    if launches != want:
+        fail("phiseg_train through `python -m phiseg_tpu_torch` did not run K1 and K2 once a step")
+    bad = []
+    for name, proc in helps.items():
+        stdout, stderr = proc.communicate(timeout=120)
+        if proc.returncode != 0 or "usage:" not in stdout:
+            bad.append((name, proc.returncode, stderr[-500:]))
+    say(f"entry points: --help of {len(helps)} names with {list(BLOCKED_IMPORTS)} blocked: "
+        f"{len(helps) - len(bad)} exit 0 with a usage ({time.perf_counter() - t0:.2f} s, the "
+        f"train run included)")
+    if bad:
+        fail(f"--help failed with jax blocked: {bad}")
+
+    # (b) the results tools on the eval phases' npz files, PHiSeg vs ProbUNet
+    frce.reset_launch_counts()
+    t0 = time.perf_counter()
+    dispatch(["phiseg_test_quantitative", probunet_log, "--samples", str(QUANT_SAMPLES),
+              "--batch", str(QUANT_BATCH)])
+    keys, n, ok = _quant_npz(probunet_log, QUANT_SAMPLES)
+    if n != 32 or not ok:
+        fail("test_quantitative through the dispatcher breaks the npz contract")
+    # the tools name a row by the log dir's basename: give the two dirs theirs
+    named = {}
+    for exp, d in ((EXPERIMENT, phiseg_log), (FAMILY_EXPERIMENTS[0], probunet_log)):
+        named[exp] = os.path.join(root, exp)
+        os.symlink(d, named[exp])
+    phiseg_log, probunet_log = named.values()
+    stem = f"{QUANT_SAMPLES}_best_ged"
+    arrays = {}
+    for d in (phiseg_log, probunet_log):
+        with np.load(os.path.join(d, f"ged{stem}.npz")) as z:
+            arrays[d] = {k: np.asarray(z[k]) for k in ("arr_0", "d_sy", "d_ss", "d_yy")}
+        with np.load(os.path.join(d, f"ncc{stem}.npz")) as z:
+            arrays[d]["ncc"] = np.asarray(z["arr_0"])
+        with np.load(os.path.join(d, "dice_best_dice.npz")) as z:
+            arrays[d]["dice"] = np.asarray(z["arr_0"])[:, 1:].mean(axis=1)
+    _, table = _stdout_of(dispatch, ["results_table", phiseg_log, probunet_log, "--samples",
+                                     str(QUANT_SAMPLES)])
+    _, pairs = _stdout_of(dispatch, ["pair_stats", phiseg_log, probunet_log, "--samples",
+                                     str(QUANT_SAMPLES)])
+    misses = []
+    for d in (phiseg_log, probunet_log):
+        a, name = arrays[d], os.path.basename(d.rstrip("/"))
+        want = [f"{a['arr_0'].mean():.3f}", f"{a['ncc'].mean():.3f}", f"{a['dice'].mean():.3f}"]
+        got = _printed_means(table, f"| {name} |", 7)
+        if [got[0], got[4], got[6]] != want:
+            misses.append(("results_table", name, got, want))
+        want = [f"{a[k].mean():.4f}" for k in ("d_sy", "d_ss", "d_yy")]
+        got = _printed_means(pairs, f"  {name}: ", 3)
+        if got != want:
+            misses.append(("pair_stats", name, got, want))
+    out["results_s"] = time.perf_counter() - t0
+    if misses:
+        fail(f"a printed mean is not its array's mean: {misses}")
+
+    # (c) ged_decomposition at phase 10's samples and batch
+    t0 = time.perf_counter()
+    (res,), _ = _stdout_of(dispatch, ["ged_decomposition", phiseg_log, "--samples",
+                                      str(QUANT_SAMPLES), "--batch", str(QUANT_BATCH)])
+    a = arrays[phiseg_log]
+    gaps = {k: abs(res[key] - float(a[k].mean())) for k, key in
+            (("d_sy", "d_sy_fit"), ("d_ss", "d_ss_sample_diversity"),
+             ("d_yy", "d_yy_annotator_diversity"))}
+    identity = abs(res["ged2"] - (2 * res["d_sy_fit"] - res["d_ss_sample_diversity"]
+                                  - res["d_yy_annotator_diversity"]))
+    out["ged_decomposition"] = {"gaps": gaps, "identity": identity,
+                                "s": time.perf_counter() - t0}
+    say(f"ged_decomposition vs test_quantitative's npz ({res['n_images']} images, "
+        f"{QUANT_SAMPLES} samples, batch {QUANT_BATCH}): |gap| {gaps}; |GED^2 - (2 d_sy - d_ss "
+        f"- d_yy)| {identity:.3g}; {out['ged_decomposition']['s']:.2f} s")
+    if res["n_images"] != 32 or max(gaps.values()) > 1e-6 or identity > 1e-6:
+        fail("ged_decomposition's terms are not test_quantitative's")
+
+    # (d) dyy_report on the card against the JAX script's committed report
+    t0 = time.perf_counter()
+    text, _ = _stdout_of(dispatch, ["dyy_report"])
+    with open(os.path.join(ROOT, DYY_REPORT)) as f:
+        committed = f.read()
+    say(f"dyy_report on the card equal to {DYY_REPORT}: {text == committed} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    if text != committed:
+        fail(f"dyy_report on the card differs from {DYY_REPORT}")
+    out["launches"]["tools"] = dict(frce.LAUNCHES)
+    if any(out["launches"]["tools"].values()):
+        fail(f"the eval and results tools launched a CE kernel: {out['launches']['tools']}")
+
+    # (e) profile_step: the train window and the sampler at B=1 and B=8
+    prof = {}
+    for argv in (["train"], ["sampler", "--batch", "1"], ["sampler", "--batch", "8"]):
+        key = " ".join(argv)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        summary = dispatch(["profile_step", argv[0], os.path.join(root, "profile_" + argv[0])]
+                           + argv[1:])
+        per = "step" if argv[0] == "train" else "image"
+        prof[key] = {"busy_share": summary["busy_us"] / summary["window_us"],
+                     f"device_ms_per_{per}": summary["busy_us"] / 1e3 / summary["units"],
+                     "peak_gib": summary["peak_gib"], "kernels": summary["kernels"],
+                     "named": summary["named"], "launches": summary["launches"],
+                     "s": time.perf_counter() - t0,
+                     "top": [(n[:60], round(d / 1e3, 3), c) for n, d, c in summary["ops"][:5]]}
+        if not summary["busy_us"] > 0:
+            fail(f"profile_step {key}: no device time in the window")
+    out["profile"] = prof
+    tr = prof["train"]
+    steps = tr["launches"]["fused_residual_ce_fwd"]
+    if tr["named"] != {"K1": steps, "K2": steps} or steps != 10 or \
+            tr["launches"]["fused_residual_ce_bwd"] != steps:
+        fail(f"profile_step train: K1/K2 in the window {tr['named']}, launches {tr['launches']}")
+
+    # (f) the driver entry points. entry() with K1 against entry() with the
+    # plain CE on the same weights, zero inputs and generator seed; its K1
+    # call against the plain CE on that call's own inputs, since the KL
+    # terms in the total could hide a wrong CE
+    calls, real = [], objective_mod.fused_residual_ce
+
+    def record(levels, s_oh):  # entry's K1 call, its inputs kept
+        res = real(levels, s_oh)
+        calls.append((list(levels), s_oh, res))
+        return res
+
+    totals, no_launch = {}, {k: 0 for k in frce.LAUNCHES}
+    objective_mod.fused_residual_ce = record
+    torch.backends.cudnn.deterministic = True
+    try:
+        for way, cfg in (("kernel", None), ("plain", base.replace(use_fused_loss_kernel=False))):
+            frce.reset_launch_counts()
+            fn, args = graft_entry.entry("cuda", cfg)
+            with torch.no_grad():
+                totals[way] = float(fn(*args))
+            torch.cuda.synchronize()
+            out["launches"]["entry" if way == "kernel" else "entry_plain"] = dict(frce.LAUNCHES)
+            del fn, args
+    finally:
+        objective_mod.fused_residual_ce = real
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    gap = abs(totals["kernel"] - totals["plain"]) / abs(totals["plain"])
+    if len(calls) != 1:
+        fail(f"entry(): the objective called K1 {len(calls)} times, not once")
+    (levels, s_oh, res), = calls
+    ref = frce.residual_ce_plain(levels, s_oh)
+    k1_err = ((res - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+    rtol = TOLERANCE[str(levels[0].dtype).split(".")[-1]][0]
+    out["entry_k1_err"] = k1_err
+    say(f"graft_entry.entry('cuda') ({EXPERIMENT}, {base.compute_dtype}): loss with K1 "
+        f"{totals['kernel']:.9g}, with the plain CE {totals['plain']:.9g}, rel {gap:.3e} (tol "
+        f"{KERNEL_STEP_LOSS_TOL:g}); K1 on {len(levels)} levels {tuple(levels[0].shape)} "
+        f"{levels[0].dtype} vs the plain CE on its inputs: worst per-level rel {k1_err:.3e} (tol "
+        f"{rtol:g}, phase 2's); launches "
+        f"{out['launches']['entry']} (plain {out['launches']['entry_plain']})")
+    if not all(math.isfinite(v) for v in totals.values()) or not gap <= KERNEL_STEP_LOSS_TOL:
+        fail("entry(): the loss is not finite or K1's differs from the plain CE's")
+    if not k1_err <= rtol:
+        fail("entry(): K1 disagrees with the plain CE on its inputs")
+    if out["launches"]["entry"] != dict(no_launch, fused_residual_ce_fwd=1) or \
+            out["launches"]["entry_plain"] != no_launch:
+        fail("entry(): K1 did not launch exactly once, or the plain CE launched a kernel")
+
+    # the kernels at one dry-run rank's shapes, from one synthetic batch,
+    # then the dry run itself
+    dcfg = graft_entry.dryrun_config(DRYRUN_RANKS).replace(batch_size=2)  # one rank's shard
+    x, s = get_dataset(dcfg, n_train=8, n_val=4, n_test=4).train.next_batch(dcfg.batch_size)
+    x, s = torch.from_numpy(x).cuda(), torch.from_numpy(s.astype(np.uint8)).cuda()
+    _kernel_vs_plain_step(dcfg, x, s, head="likelihood.out", loss_tol=KERNEL_STEP_LOSS_TOL)
+    del x, s
+    frce.reset_launch_counts()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = graft_entry.dryrun_multichip(DRYRUN_RANKS, device="cuda")
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["launches"]["dryrun_per_rank"] = [r[1] for r in ranks]
+    say(f"dryrun_multichip({DRYRUN_RANKS}) on gloo ranks sharing the card: losses {ranks[0][0]}, "
+        f"launches per rank {out['launches']['dryrun_per_rank']}, {out['dryrun_s']:.2f} s")
+    for losses, launches in ranks:
+        if launches != {"fused_residual_ce_fwd": 3, "fused_residual_ce_bwd": 3,
+                        "fused_residual_ce_dp": 3}:
+            fail(f"dryrun_multichip(2): a rank launched {launches}, not 3 of each")
+    out["s"] = time.perf_counter() - t_phase
+    say(f"entry points and results tools: {out['s']:.2f} s")
+    return out
+
+
+def _entry_launches(entry_points, key: str) -> dict:
+    """One kernel's launches on each path of phase 22."""
+    launches = entry_points["launches"]
+    return {"phiseg_train": launches["phiseg_train"][key], "tools": launches["tools"][key],
+            "profile_step_train": entry_points["profile"]["train"]["launches"][key],
+            "entry": launches["entry"][key],
+            "dryrun_multichip_per_rank": [r[key] for r in launches["dryrun_per_rank"]]}
+
 
 def main() -> None:
     smi = phase_device()
@@ -2998,6 +3283,7 @@ def main() -> None:
     phase_jax_checkpoint()
     bf16 = phase_batch_bf16()
     resumed = phase_jax_resume()
+    entry_points = phase_entry_points(val["log_dir"], fam[FAMILY_EXPERIMENTS[0]]["log_dir"])
 
     import torch
 
@@ -3018,6 +3304,7 @@ def main() -> None:
              "launches_validation_path": (val["launches"][f"fused_residual_ce_{k}"]
                                           - VAL_ITERS),
              "max_rel_err_validation_path": k1_val_err if k == "fwd" else None,
+             "max_rel_err_entry": entry_points["entry_k1_err"] if k == "fwd" else None,
              "share_of_bound": b_ms / t["cold"], "layout": layout, "variant": t["variant"],
              # at L=1, B=12, 128x128, the U-Net families' shape (phase 11)
              "launches_l1": sum(f["launches"][f"fused_residual_ce_{k}"] for f in fam.values()),
@@ -3041,7 +3328,10 @@ def main() -> None:
              # phase 20: a batch_bf16 run; phase 21: each phiseg_tpu run carried on
              "launches_batch_bf16": bf16["launches"][f"fused_residual_ce_{k}"],
              "launches_jax_resume": {n: r["launches"][f"fused_residual_ce_{k}"]
-                                     for n, r in resumed.items()}})
+                                     for n, r in resumed.items()},
+             # phase 22: the entry points (profile_step train's 10 traced
+             # steps, entry(), each dry-run rank; the eval / results tools 0)
+             "launches_entry_points": _entry_launches(entry_points, f"fused_residual_ce_{k}")})
     # K3 on one rank: K1 over its shard (the all_reduce moves L floats)
     b_ms, b_by = bound_ms(*ce_work(cfg.latent_levels, pixels // DP_WORLD, cfg.nlabels, False))
     kernels.append(
@@ -3053,7 +3343,8 @@ def main() -> None:
          "launches_lidc": {n: r["fused_residual_ce_dp"] for n, r in lidc.items()},
          "launches_batch_bf16": bf16["launches"]["fused_residual_ce_dp"],
          "launches_jax_resume": {n: r["launches"]["fused_residual_ce_dp"]
-                                 for n, r in resumed.items()}})
+                                 for n, r in resumed.items()},
+         "launches_entry_points": _entry_launches(entry_points, "fused_residual_ce_dp")})
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

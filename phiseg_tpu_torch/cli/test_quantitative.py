@@ -41,13 +41,15 @@ import torch
 log = logging.getLogger(__name__)
 
 
-def evaluate(log_dir: str, num_samples: int = 50, tag: str = "best_ged", batch: int = 8,
-             max_images: int | None = None, synth_n_test: int | None = None,
-             out_suffix: str = "", device: str = "cuda", mesh=None):
-    """Score `tag`'s checkpoint of log_dir over the test split; writes the
-    two npz files and returns (ged (n,), ncc (n,)). With a mesh
-    (parallel.mesh.Mesh) the draws are split over its ranks, on the mesh's
-    device, and only rank 0 writes."""
+def score_test_split(log_dir: str, num_samples: int = 50, tag: str = "best_ged",
+                     batch: int = 8, max_images: int | None = None,
+                     synth_n_test: int | None = None, device: str = "cuda", mesh=None):
+    """Draw `num_samples` prior samples per test image from `tag`'s
+    checkpoint of log_dir and score them. Returns (step, n_annotators, ged
+    (n,), ncc (n,), terms (n, 3) of d_sy, d_ss, d_yy). The noise comes from
+    one generator seeded cfg.seed + 99, consumed batch by batch; the last
+    batch is simply shorter. With a mesh (parallel.mesh.Mesh) the draws
+    are split over its ranks, on the mesh's device."""
     from phiseg_tpu_torch.data import get_dataset
     from phiseg_tpu_torch.engine.loading import load_experiment
     from phiseg_tpu_torch.engine.validation import make_quant_eval_fn
@@ -76,10 +78,20 @@ def evaluate(log_dir: str, num_samples: int = 50, tag: str = "best_ged", batch: 
         ncc_list.append(nc.cpu().numpy())
         term_list.append(terms.cpu().numpy())
         log.info("%d/%d images (%.2f s/img)", b1, n, (time.time() - t0) / b1)
+    n_annotators = int(np.asarray(labels).shape[-1])
+    return (step, n_annotators, np.concatenate(ged_list), np.concatenate(ncc_list),
+            np.concatenate(term_list, axis=0))
 
-    ged_arr = np.concatenate(ged_list)
-    ncc_arr = np.concatenate(ncc_list)
-    term_arr = np.concatenate(term_list, axis=0)  # (n, 3): d_sy, d_ss, d_yy
+
+def evaluate(log_dir: str, num_samples: int = 50, tag: str = "best_ged", batch: int = 8,
+             max_images: int | None = None, synth_n_test: int | None = None,
+             out_suffix: str = "", device: str = "cuda", mesh=None):
+    """Score `tag`'s checkpoint of log_dir over the test split; writes the
+    two npz files and returns (ged (n,), ncc (n,)). With a mesh
+    (parallel.mesh.Mesh) the draws are split over its ranks, on the mesh's
+    device, and only rank 0 writes."""
+    _, n_annotators, ged_arr, ncc_arr, term_arr = score_test_split(
+        log_dir, num_samples, tag, batch, max_images, synth_n_test, device, mesh)
     log.info("-- GED: %.4f +- %.4f", ged_arr.mean(), ged_arr.std())
     log.info("-- NCC: %.4f +- %.4f", ncc_arr.mean(), ncc_arr.std())
     log.info("-- GED terms: fit d_sy %.4f | sample diversity d_ss %.4f | "
@@ -92,7 +104,6 @@ def evaluate(log_dir: str, num_samples: int = 50, tag: str = "best_ged", batch: 
     # The reference's artefact names (:80-81): the positional array stays
     # arr_0, the GED terms and the sample / annotator counts ride along
     # (n_samples and n_annotators give the estimator's finite-N/M floor).
-    n_annotators = int(np.asarray(labels).shape[-1])
     np.savez(os.path.join(log_dir, f"ged{num_samples}_{tag}{out_suffix}.npz"), ged_arr,
              d_sy=term_arr[:, 0], d_ss=term_arr[:, 1], d_yy=term_arr[:, 2],
              n_samples=np.asarray(num_samples), n_annotators=np.asarray(n_annotators))

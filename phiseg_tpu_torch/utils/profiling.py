@@ -17,15 +17,20 @@ A session records the host's operator calls always, and the card's kernels,
 copies and their times when it is given a CUDA device. It ends with a
 synchronise, so every kernel queued in the window is in the trace, and
 writes one trace file per session, `<label>.<pid>.trace.json`.
+`summarize_trace` reads such a file back: the window, the device's busy
+time in it, and the device time and calls of each kernel, copy and fill by
+name.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import logging
 import os
 import time
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -49,8 +54,10 @@ def _activities(device) -> list:
     return acts
 
 
-class _Session:
-    """One torch.profiler session that writes its Chrome trace into a directory."""
+class ProfileSession:
+    """One torch.profiler session that writes its Chrome trace into a
+    directory: it starts when made, and `stop()` ends it and returns the
+    trace's path."""
 
     def __init__(self, out_dir: str, label: str, device=None):
         self.device = device
@@ -75,7 +82,7 @@ class StepProfiler:
     def __init__(self, device=None):
         self.dir, self.start_step, self.stop_step = profile_config()
         self.device = device
-        self._session: Optional[_Session] = None
+        self._session: Optional[ProfileSession] = None
         self.traces = []  # the trace files written
 
     @property
@@ -84,7 +91,7 @@ class StepProfiler:
 
     def maybe_start(self, step: int) -> None:
         if self.dir and self._session is None and step == self.start_step:
-            self._session = _Session(self.dir, f"steps{self.start_step}-{self.stop_step}",
+            self._session = ProfileSession(self.dir, f"steps{self.start_step}-{self.stop_step}",
                                      self.device)
             log.info("profiler: tracing steps %d..%d -> %s",
                      self.start_step, self.stop_step, self.dir)
@@ -110,7 +117,7 @@ def trace_if_enabled(device=None, label: str = "trace"):
     if not d:
         yield
         return
-    session = _Session(d, label, device)
+    session = ProfileSession(d, label, device)
     try:
         yield
     finally:
@@ -122,3 +129,53 @@ def timed_section(name: str):
     t0 = time.perf_counter()
     yield
     log.info("@ %s took: %.2f secs", name, time.perf_counter() - t0)
+
+
+# a Chrome trace's device events: kernels, copies and fills
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_events(path: str) -> Tuple[List[dict], List[dict]]:
+    """The complete ("X") events of a Chrome trace, and its device events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    return events, [e for e in events if e.get("cat") in DEVICE_CATS]
+
+
+def _busy_us(events: List[dict]) -> float:
+    """Microseconds of the union of the events' [start, end): the time at
+    least one of them ran."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for a, z in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, z
+        else:
+            cur_e = max(cur_e, z)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def summarize_trace(path: str) -> Dict[str, object]:
+    """A trace's window (first event's start to last event's end), the
+    device's busy and summed time in it, its kernel count, and `ops`: each
+    device op's (name, self device us, calls), most time first. The device
+    time of a kernel is its own; no CPU op is given its kernels' time."""
+    events, device = trace_events(path)
+    by_name: Dict[str, List[float]] = collections.defaultdict(lambda: [0.0, 0])
+    for e in device:
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    return {"window_us": hi - lo, "busy_us": _busy_us(device),
+            "device_us": sum(e["dur"] for e in device),
+            "kernels": sum(1 for e in device if e.get("cat") == "kernel"),
+            "ops": sorted(((n, d, int(c)) for n, (d, c) in by_name.items()),
+                          key=lambda t: -t[1])}
+
+
+def launches_named(summary: Dict[str, object], fragment: str) -> int:
+    """Calls of the device ops of a summary whose name holds `fragment`."""
+    return sum(c for n, _, c in summary["ops"] if fragment in n)

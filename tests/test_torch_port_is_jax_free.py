@@ -5,7 +5,9 @@ step (with on-device augmentation), one validation, a checkpoint save and
 restore, a load of the committed phiseg_tpu checkpoint
 (tests/data/jax_checkpoint_small) and the Trainer's resume of the committed
 phiseg_tpu log dirs (tests/data/jax_logdir_resume) run, and the CUDA
-library is neither built nor loaded."""
+library is neither built nor loaded. There too, `python -m phiseg_tpu_torch
+--help` and every subcommand's `--help` run, and so does results_table on
+the committed results/ npz."""
 
 import os
 import subprocess
@@ -105,3 +107,53 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+BLOCKING = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "phiseg_tpu", "h5py", "msgpack"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+"""
+
+
+def _run_blocked(body: str, extra_env=None):
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1", **(extra_env or {}))
+    proc = subprocess.run([sys.executable, "-c", BLOCKING + body], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
+
+
+def test_entry_points_and_their_help_run_without_jax():
+    """`python -m phiseg_tpu_torch --help`, and every subcommand's `--help`."""
+    out = _run_blocked(r"""
+import runpy
+sys.argv = ["phiseg_tpu_torch", "--help"]
+runpy.run_module("phiseg_tpu_torch", run_name="__main__", alter_sys=True)
+from phiseg_tpu_torch.__main__ import COMMANDS, main
+for name in COMMANDS:
+    try:
+        main([name, "--help"])
+    except SystemExit as e:
+        assert e.code == 0, (name, e.code)
+    else:
+        raise AssertionError(name + " --help did not exit")
+    print("HELP_OK", name)
+""")
+    from phiseg_tpu_torch.__main__ import COMMANDS
+
+    assert out.startswith("usage: python -m phiseg_tpu_torch <command>")
+    helped = [ln.split()[1] for ln in out.splitlines() if ln.startswith("HELP_OK")]
+    assert helped == list(COMMANDS)
+
+
+def test_results_table_runs_without_jax_on_the_committed_npz():
+    out = _run_blocked(r"""
+from phiseg_tpu_torch.__main__ import main
+main(["results_table", "lidc_bf/phiseg_7_5_bf", "lidc_bf/probunet_bf", "lidc2_bf/detunet_bf",
+      "--suffix", "_48k"])
+""", {"PHISEG_LOG_ROOT": os.path.join(ROOT, "results")})
+    lines = out.splitlines()
+    assert lines[0] == "| experiment (n=256) | GED² ↓ | GED² unbiased ↓ | S_NCC ↑ | fg Dice ↑ |"
+    assert lines[2].startswith("| phiseg_7_5_bf | 0.109 ± 0.037 |")
+    assert lines[-1].startswith("floor(probunet_bf): 0.0896")
