@@ -11,6 +11,15 @@ gradients over the ranks between backward and the optimiser.
 
 The samplers encode x once and decode all S draws as one S x B batch in
 eval batch-norm mode, where the JAX package vmaps a decode over S keys.
+
+Spans (utils/profiling.span; nothing but one check each with no profiler
+running) name the phases: `train_step` (unit: the state's step) with
+`train_step.augment`, `.forward` (one-hot, forward, objective), `.backward`
+(zero_grad, backward), `.grad_allreduce` (under a mesh) and `.optimizer`
+(the rate and the update); the sampler's `sample.encode`, `sample.decode`
+(noise, the S x B decode, the level sum), `sample.softmax` and
+`sample.assemble` (under a mesh), with CUDA events on x's device and the
+sampler's call count as their unit.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
+import itertools
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -28,6 +38,7 @@ from phiseg_tpu_torch.models.segvae import SegVAE, aggregate_levels
 from phiseg_tpu_torch.nn.layers import init_weights_, set_batch_norm_mesh
 from phiseg_tpu_torch.nn.losses import one_hot
 from phiseg_tpu_torch.parallel.mesh import DeviceLike, resolve_device
+from phiseg_tpu_torch.utils.profiling import span
 
 
 def build_model(cfg: ExperimentConfig, device: DeviceLike = "cuda",
@@ -124,28 +135,34 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
              generator: Optional[torch.Generator] = None,
              eps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         nonlocal sync_bn_model
-        fused = fused_ce_rule(use_fused_ce, x)
-        if augment_fn is not None:
-            x, s = augment_fn(x, s, generator)
-        s_oh = one_hot(s, cfg.nlabels)
-        model, opt = state.model, state.optimizer
-        model.train()
-        if mesh is not None and model is not sync_bn_model:
-            set_batch_norm_mesh(model, mesh)
-            sync_bn_model = model
-        outputs = model(x, s_oh, eps=eps, generator=generator)
-        loss, loss_dict = phiseg_objective(outputs, s_oh, cfg, model=model, use_fused_ce=fused,
-                                           mesh=mesh)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            mesh.average_gradients(list(model.parameters()))
-        lr = lr_fn(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        state.step += 1
-        return {k: v.detach() for k, v in loss_dict.items()}
+        with span("train_step", state.step):
+            fused = fused_ce_rule(use_fused_ce, x)
+            if augment_fn is not None:
+                with span("train_step.augment"):
+                    x, s = augment_fn(x, s, generator)
+            model, opt = state.model, state.optimizer
+            with span("train_step.forward"):
+                s_oh = one_hot(s, cfg.nlabels)
+                model.train()
+                if mesh is not None and model is not sync_bn_model:
+                    set_batch_norm_mesh(model, mesh)
+                    sync_bn_model = model
+                outputs = model(x, s_oh, eps=eps, generator=generator)
+                loss, loss_dict = phiseg_objective(outputs, s_oh, cfg, model=model,
+                                                   use_fused_ce=fused, mesh=mesh)
+            with span("train_step.backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            if mesh is not None:
+                with span("train_step.grad_allreduce"):
+                    mesh.average_gradients(list(model.parameters()))
+            with span("train_step.optimizer"):
+                lr = lr_fn(state.step)
+                for group in opt.param_groups:
+                    group["lr"] = lr
+                opt.step()
+            state.step += 1
+            return {k: v.detach() for k, v in loss_dict.items()}
 
     step.mesh = mesh
     return step
@@ -197,10 +214,11 @@ def _draw_range(num_samples: int, mesh) -> Tuple[int, int]:
     return mesh.rank * per, (mesh.rank + 1) * per
 
 
-def _decode_draws(model: SegVAE, x: torch.Tensor, num_samples: int, lo: int, hi: int,
+def _decode_draws(model: SegVAE, cache, x: torch.Tensor, num_samples: int, lo: int, hi: int,
                   generator: Optional[torch.Generator],
                   eps: Optional[Sequence[torch.Tensor]]) -> List[torch.Tensor]:
-    """Per-level logits (hi-lo, B, H, W, C) of draws lo..hi-1 of num_samples.
+    """Per-level logits (hi-lo, B, H, W, C) of draws lo..hi-1 of num_samples,
+    from the prior's `cache` of x (`model.sample_cache(x)`).
 
     Each level's noise for ALL draws comes from `generator` in one call
     (S, *latent shape), so a rank that decodes a share of the draws gets the
@@ -210,14 +228,14 @@ def _decode_draws(model: SegVAE, x: torch.Tensor, num_samples: int, lo: int, hi:
     """
     n = hi - lo
     if not model.has_latents:
-        return [t.expand(n, *t.shape) for t in model.decode_sample(model.sample_cache(x))]
+        return [t.expand(n, *t.shape) for t in model.decode_sample(cache)]
     b = x.shape[0]
     if eps is None:
         eps = [torch.randn((num_samples, *shape), generator=generator, device=x.device,
                            dtype=model.dtype)
                for shape in model.latent_shapes(b)]
     eps = [e[lo:hi].reshape(n * b, *e.shape[2:]) for e in eps]
-    cache = model.repeat_cache(model.sample_cache(x), n)
+    cache = model.repeat_cache(cache, n)
     return [t.reshape(n, b, *t.shape[1:]) for t in model.decode_sample(cache, eps=eps)]
 
 
@@ -225,8 +243,6 @@ def _assemble(part: torch.Tensor, num_samples: int, lo: int, mesh) -> torch.Tens
     """Every rank's share of the draws in one (S, ...) tensor on every rank:
     an all_reduce of a zero-filled buffer, in which each rank wrote its
     share (exact, since the other ranks add zeros)."""
-    if mesh is None:
-        return part
     full = torch.zeros((num_samples, *part.shape[1:]), dtype=part.dtype, device=part.device)
     full[lo:lo + part.shape[0]] = part
     return mesh.all_reduce_(full)
@@ -243,13 +259,24 @@ def make_sample_fn(model: SegVAE, num_samples: int, return_probs: bool = True, m
     S.
     """
     lo, hi = _draw_range(num_samples, mesh)
+    calls = itertools.count()
 
     def sample(x: torch.Tensor, generator: Optional[torch.Generator] = None,
                eps: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        unit, dev = next(calls), x.device
         with torch.no_grad(), _eval_mode(model):
-            logits = aggregate_levels(_decode_draws(model, x, num_samples, lo, hi, generator, eps))
-            out = torch.softmax(logits, dim=-1) if return_probs else logits
-            return _assemble(out, num_samples, lo, mesh)
+            with span("sample.encode", unit, dev):
+                cache = model.sample_cache(x)
+            with span("sample.decode", unit, dev):
+                out = aggregate_levels(_decode_draws(model, cache, x, num_samples, lo, hi,
+                                                     generator, eps))
+            if return_probs:
+                with span("sample.softmax", unit, dev):
+                    out = torch.softmax(out, dim=-1)
+            if mesh is not None:
+                with span("sample.assemble", unit, dev):
+                    out = _assemble(out, num_samples, lo, mesh)
+            return out
 
     return sample
 
@@ -261,6 +288,7 @@ def make_sample_levels_fn(model: SegVAE, num_samples: int):
     def sample(x: torch.Tensor, generator: Optional[torch.Generator] = None,
                eps: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, ...]:
         with torch.no_grad(), _eval_mode(model):
-            return tuple(_decode_draws(model, x, num_samples, 0, num_samples, generator, eps))
+            return tuple(_decode_draws(model, model.sample_cache(x), x, num_samples, 0, num_samples,
+                                       generator, eps))
 
     return sample

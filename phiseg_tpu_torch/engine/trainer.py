@@ -28,7 +28,11 @@ differs from it. The final state is saved as `latest` when the loop ends
 normally. Checkpoint writes go through an ordered writer thread
 (`async_checkpointing`), drained when `train` returns or raises. With
 PHISEG_PROFILE_DIR set, the steps of PHISEG_PROFILE_STEPS are traced into
-it (utils/profiling.py; JAX trainer.py:206-225).
+it (utils/profiling.py; JAX trainer.py:206-225), each with its report and
+validation. Spans (utils/profiling.span): `data.wait` (the wait for the
+prefetch thread, with that thread's CPU clock at entry), `data.to_device`,
+`train.report`, `validation` and `checkpoint.snapshot` (the host copy of
+the state a validation saves).
 
 The trainer runs on the card unless it is asked for the CPU: device "cuda"
 without a card raises. With a mesh (parallel.mesh.Mesh) it is one rank of a
@@ -76,7 +80,7 @@ from phiseg_tpu_torch.engine.train import (
 )
 from phiseg_tpu_torch.engine.validation import make_validation_fn
 from phiseg_tpu_torch.parallel.mesh import resolve_device, shard_host_batch, shard_train_step
-from phiseg_tpu_torch.utils.profiling import StepProfiler
+from phiseg_tpu_torch.utils.profiling import StepProfiler, span
 from phiseg_tpu_torch.utils.tb_writer import SummaryWriter
 
 log = logging.getLogger(__name__)
@@ -110,10 +114,24 @@ class _Prefetcher:
                 continue
 
     def next(self):
-        item = self.q.get()
+        with span("data.wait") as rec:
+            if rec is not None:
+                rec.value = self._producer_cpu_ns()
+            item = self.q.get()
         if isinstance(item, Exception):
             raise RuntimeError("the batch prefetch thread failed") from item
         return item
+
+    def _producer_cpu_ns(self) -> Optional[int]:
+        """The prefetch thread's CPU clock, read from the calling thread
+        (a profiler started after the thread cannot see it); None once the
+        thread has ended."""
+        if not self.t.is_alive():
+            return None
+        try:
+            return time.clock_gettime_ns(time.pthread_getcpuclockid(self.t.ident))
+        except OSError:  # it ended in between
+            return None
 
     def stop(self):
         self._stop.set()
@@ -228,14 +246,15 @@ class Trainer:
     def _to_device(self, x, s, shard: bool = True):
         """Host batch -> device tensors (this rank's slice under a mesh unless
         shard is False): images f32, labels uint8."""
-        if shard and self.mesh is not None:
-            x, s = shard_host_batch(x, self.mesh), shard_host_batch(s, self.mesh)
-        s = np.asarray(s)
-        if self.cfg.nlabels <= 255 and s.dtype != np.uint8:
-            s = s.astype(np.uint8)
-        x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
-        s = torch.from_numpy(np.ascontiguousarray(s))
-        return x.to(self.device, non_blocking=True), s.to(self.device, non_blocking=True)
+        with span("data.to_device"):
+            if shard and self.mesh is not None:
+                x, s = shard_host_batch(x, self.mesh), shard_host_batch(s, self.mesh)
+            s = np.asarray(s)
+            if self.cfg.nlabels <= 255 and s.dtype != np.uint8:
+                s = s.astype(np.uint8)
+            x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+            s = torch.from_numpy(np.ascontiguousarray(s))
+            return x.to(self.device, non_blocking=True), s.to(self.device, non_blocking=True)
 
     def train(self, data, num_iter: Optional[int] = None):
         """Train from the resumed step up to `num_iter` (default: the
@@ -253,41 +272,44 @@ class Trainer:
                 self.profiler.maybe_start(step)
                 x, s = self._to_device(*prefetch.next())
                 loss_dict = self.train_step(self.state, x, s, self.generator)
-                self.profiler.maybe_stop(step)
 
                 if step % cfg.tensorboard_update_frequency == 0:
-                    loss_dict = {k: float(v) for k, v in loss_dict.items()}
-                    # numerical-failure detection (trainer.py:231-237)
-                    if not np.isfinite(loss_dict["total_loss"]):
-                        bad = [k for k, v in loss_dict.items() if not np.isfinite(v)]
-                        raise FloatingPointError(
-                            f"non-finite loss at step {step}: {bad}. Set "
-                            "torch.autograd.set_detect_anomaly(True) to localise the op; "
-                            f"the last good checkpoint is in {self.log_dir}.")
-                    now = time.perf_counter()
-                    dt, t_last = now - t_last, now
-                    ips = (cfg.batch_size * cfg.tensorboard_update_frequency / dt
-                           if step > self.init_step else 0.0)
-                    scalars = {f"batch_{k}": v for k, v in loss_dict.items()}
-                    scalars["images_per_sec"] = ips  # cfg.batch_size is the global batch
-                    scalars["learning_rate"] = self._lr(step)
-                    if self.is_chief:
-                        self.writer.scalars(scalars, step)
-                        self.writer.flush()
-                        write_metrics_jsonl(self.metrics_path, step, scalars)
-                    log.info("step %d: loss %.4f (%.1f img/s)", step,
-                             loss_dict["total_loss"], ips)
+                    with span("train.report", step):
+                        loss_dict = {k: float(v) for k, v in loss_dict.items()}
+                        # numerical-failure detection (trainer.py:231-237)
+                        if not np.isfinite(loss_dict["total_loss"]):
+                            bad = [k for k, v in loss_dict.items() if not np.isfinite(v)]
+                            raise FloatingPointError(
+                                f"non-finite loss at step {step}: {bad}. Set "
+                                "torch.autograd.set_detect_anomaly(True) to localise the op; "
+                                f"the last good checkpoint is in {self.log_dir}.")
+                        now = time.perf_counter()
+                        dt, t_last = now - t_last, now
+                        ips = (cfg.batch_size * cfg.tensorboard_update_frequency / dt
+                               if step > self.init_step else 0.0)
+                        scalars = {f"batch_{k}": v for k, v in loss_dict.items()}
+                        scalars["images_per_sec"] = ips  # cfg.batch_size is the global batch
+                        scalars["learning_rate"] = self._lr(step)
+                        if self.is_chief:
+                            self.writer.scalars(scalars, step)
+                            self.writer.flush()
+                            write_metrics_jsonl(self.metrics_path, step, scalars)
+                        log.info("step %d: loss %.4f (%.1f img/s)", step,
+                                 loss_dict["total_loss"], ips)
 
                 if step % cfg.validation_frequency == 0 and step > self.init_step:
-                    # The diagnostics' train batch comes off the training
-                    # stream on every rank, through the one thread that reads
-                    # the provider, so the ranks' streams stay in step.
-                    train_batch = prefetch.next()
-                    if self.is_chief:
-                        self.do_validation(data, step, train_batch=train_batch)
-                    if self.mesh is not None:  # the other ranks wait for rank 0
-                        self.mesh.broadcast_(torch.zeros(1, device=self.device))
+                    with span("validation", step):
+                        # The diagnostics' train batch comes off the training
+                        # stream on every rank, through the one thread that
+                        # reads the provider, so the ranks' streams stay in step.
+                        train_batch = prefetch.next()
+                        if self.is_chief:
+                            self.do_validation(data, step, train_batch=train_batch)
+                        if self.mesh is not None:  # the other ranks wait for rank 0
+                            self.mesh.broadcast_(torch.zeros(1, device=self.device))
                     t_last = time.perf_counter()  # exclude validation from img/s
+                # after the step's report and validation, so a window holds them
+                self.profiler.maybe_stop(step)
             # Persist the final state on normal completion only: after a
             # FloatingPointError the live state may be non-finite and must
             # not overwrite 'latest'. A run that took no step from a
@@ -326,7 +348,8 @@ class Trainer:
         model = self.state.model
         t0 = time.time()
         # one host snapshot for every tag saved at this step
-        host_state = host_snapshot(self.state, self.generator)
+        with span("checkpoint.snapshot", step):
+            host_state = host_snapshot(self.state, self.generator)
         self.ckpt.save(host_state, "latest")  # file name label = state.step
         self.ckpt.maybe_archive(host_state)   # every-N-hours forensic history
 

@@ -14,6 +14,11 @@ level (S, B, h, w, zdim) as make_sample_fn takes it, `eps_elbo` per level
 (E, B, h, w, zdim), draw k using row k. The tests inject JAX's threefry
 draws that way.
 
+Spans (utils/profiling.span), their unit each function's call count:
+`eval.sample` (the draws) and `eval.metrics` (GED^2's terms and S_NCC),
+with CUDA events on x's device; `validation.sample`, `validation.metrics`
+(Dice, GED^2, S_NCC) and `validation.elbo`.
+
 The JAX package pads every batch to one shape (`pad_to_batch`) to avoid an
 XLA recompile; eager PyTorch has nothing to recompile, so a short last batch
 is simply smaller.
@@ -21,6 +26,7 @@ is simply smaller.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -35,6 +41,7 @@ from phiseg_tpu_torch.metrics import (
 )
 from phiseg_tpu_torch.models.segvae import SegVAE
 from phiseg_tpu_torch.nn.losses import one_hot
+from phiseg_tpu_torch.utils.profiling import span
 
 Eps = Optional[Sequence[torch.Tensor]]
 
@@ -59,16 +66,22 @@ def make_quant_eval_fn(model: SegVAE, cfg: ExperimentConfig, num_samples: int, m
     nlabels = cfg.nlabels
     label_range = tuple(range(1, nlabels))
     sample = make_sample_fn(model, num_samples, mesh=mesh)
+    calls = itertools.count()
 
     def quant(x: torch.Tensor, s_annotators: torch.Tensor,
               generator: Optional[torch.Generator] = None, eps: Eps = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        probs_b, masks_b = _draws_by_image(sample(x, generator, eps))
-        d_sy, d_ss, d_yy = ged_terms(masks_b, s_annotators, nlabels=nlabels - 1,
-                                     label_range=label_range)
-        ged_b = 2.0 * d_sy - d_ss - d_yy
-        sncc_b = variance_ncc_dist(probs_b, one_hot(s_annotators, nlabels))
-        return ged_b, sncc_b, torch.stack([d_sy, d_ss, d_yy], dim=-1)
+        unit = next(calls)
+        with span("eval.sample", unit, x.device):
+            probs = sample(x, generator, eps)
+        with span("eval.metrics", unit, x.device):
+            probs_b, masks_b = _draws_by_image(probs)
+            d_sy, d_ss, d_yy = ged_terms(masks_b, s_annotators, nlabels=nlabels - 1,
+                                         label_range=label_range)
+            ged_b = 2.0 * d_sy - d_ss - d_yy
+            sncc_b = variance_ncc_dist(probs_b, one_hot(s_annotators, nlabels))
+            terms = torch.stack([d_sy, d_ss, d_yy], dim=-1)
+        return ged_b, sncc_b, terms
 
     return quant
 
@@ -90,25 +103,29 @@ def make_validation_fn(model: SegVAE, cfg: ExperimentConfig):
     label_range = tuple(range(1, nlabels))
     sample = make_sample_fn(model, num_samples)
     eval_loss = make_eval_loss_fn(model, cfg)
+    calls = itertools.count()
 
     def validate(x: torch.Tensor, s_annotators: torch.Tensor, s_selected: torch.Tensor,
                  generator: Optional[torch.Generator] = None, eps_samples: Eps = None,
                  eps_elbo: Eps = None):
-        probs = sample(x, generator, eps_samples)  # (S,B,H,W,C)
-        probs_b, masks_b = _draws_by_image(probs)
-
-        # mean-softmax argmax prediction (ref :587, :600)
-        pred = probs.mean(0).argmax(-1)
-        dice_b = dice_per_label(pred, s_selected, nlabels)
-        ged_b = generalised_energy_distance(masks_b, s_annotators, nlabels=nlabels - 1,
-                                            label_range=label_range)
-        sncc_b = variance_ncc_dist(probs_b, one_hot(s_annotators, nlabels))
+        unit = next(calls)
+        with span("validation.sample", unit):
+            probs = sample(x, generator, eps_samples)  # (S,B,H,W,C)
+        with span("validation.metrics", unit):
+            probs_b, masks_b = _draws_by_image(probs)
+            # mean-softmax argmax prediction (ref :587, :600)
+            pred = probs.mean(0).argmax(-1)
+            dice_b = dice_per_label(pred, s_selected, nlabels)
+            ged_b = generalised_energy_distance(masks_b, s_annotators, nlabels=nlabels - 1,
+                                                label_range=label_range)
+            sncc_b = variance_ncc_dist(probs_b, one_hot(s_annotators, nlabels))
 
         # the eval-mode ELBO averaged over posterior draws (ref :577-585)
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for k in range(num_elbo):
-            eps = None if eps_elbo is None else [e[k] for e in eps_elbo]
-            total = total + eval_loss(x, s_selected, generator, eps)["total_loss"]
+        with span("validation.elbo", unit):
+            total = torch.zeros((), dtype=torch.float32, device=x.device)
+            for k in range(num_elbo):
+                eps = None if eps_elbo is None else [e[k] for e in eps_elbo]
+                total = total + eval_loss(x, s_selected, generator, eps)["total_loss"]
         return dice_b, ged_b, sncc_b, total / num_elbo
 
     return validate

@@ -12,7 +12,12 @@ torch.profiler session (utils/profiling.py) writes its Chrome trace into
 OUTDIR (default logs/profile_<which>); read back, it gives the top device
 ops by self device time with their calls, the device ms per step (per
 image for the sampler), the device-busy share of the window, the fused CE
-kernels' launches by name, and the peak device memory of the window.
+kernels' launches by name, and the peak device memory of the window. The
+port's spans of the window (utils/profiling.span: `train_step` and its
+`train_step.augment` / `.forward` / `.backward` / `.optimizer`, or the
+sampler's `sample.encode` / `.decode` / `.softmax`) are listed by name with
+their calls, host ms per unit and, where they carry CUDA events, device ms
+per unit.
 
 `--device` defaults to cuda, and without a card that raises; on the CPU a
 trace holds host ops only, so the device figures read "not measured".
@@ -40,7 +45,8 @@ def capture(which: str, outdir: str, device="cuda", batch: int = 1, cfg=None) ->
     window holds (steps, or images for the sampler), the peak device memory
     in GiB (None on the CPU), the fused CE launches the window made
     (`launches`, by the wrappers' counts) and the trace's K1 / K2 kernels
-    by name (`named`).
+    by name (`named`), and `spans`: (name, calls, host ms, device ms or None)
+    of the window's spans (utils.profiling.summarize_spans).
     `cfg` replaces the full-width bf16 `phiseg_7_5_synth`."""
     from phiseg_tpu_torch.data.augment_device import make_augment_fn
     from phiseg_tpu_torch.data.synthetic import make_synthetic_arrays
@@ -48,8 +54,8 @@ def capture(which: str, outdir: str, device="cuda", batch: int = 1, cfg=None) ->
     from phiseg_tpu_torch.experiments import get_experiment
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
     from phiseg_tpu_torch.parallel.mesh import resolve_device
-    from phiseg_tpu_torch.utils.profiling import (ProfileSession, launches_named,
-                                                  summarize_trace)
+    from phiseg_tpu_torch.utils.profiling import (SPANS, ProfileSession, launches_named,
+                                                  summarize_spans, summarize_trace)
 
     if which not in ("train", "sampler"):
         raise ValueError(f"profile 'train' or 'sampler', not {which!r}")
@@ -99,20 +105,27 @@ def capture(which: str, outdir: str, device="cuda", batch: int = 1, cfg=None) ->
     out.update(which=which, batch=batch, units=units, trace=path,
                launches=dict(frce.LAUNCHES), device=str(device),
                peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30 if on_card else None,
-               named={k: launches_named(out, name) for k, name in KERNEL_NAMES.items()})
+               named={k: launches_named(out, name) for k, name in KERNEL_NAMES.items()},
+               spans=summarize_spans(SPANS.records()))
     return out
 
 
 def report(summary: dict) -> None:
-    """Print the summary of `capture`: the window, the device's share of
-    it, and the top device ops."""
+    """Print the summary of `capture`: the window, the spans, the device's
+    share of the window, and the top device ops."""
     per = "step" if summary["which"] == "train" else "image"
     on_card = summary["peak_gib"] is not None
     busy_ms = summary["busy_us"] / 1e3
+    units = summary["units"]
     print(f"profile_step {summary['which']}"
           + (f" --batch {summary['batch']}" if summary["which"] == "sampler" else "")
-          + f" on {summary['device']}: {summary['units']} {per}s in the window; "
+          + f" on {summary['device']}: {units} {per}s in the window; "
           f"trace {summary['trace']}")
+    print(f"spans (host ms stretched by the profiler), per {per}:")
+    print(f"  {'calls':>6s} {'host ms':>9s} {'device ms':>9s}  name")
+    for name, calls, host_ms, dev_ms in summary["spans"]:
+        dev = "-" if dev_ms is None else f"{dev_ms / units:9.3f}"
+        print(f"  {calls:6d} {host_ms / units:9.3f} {dev:>9s}  {name}")
     if not on_card:
         print("device time: not measured (a CPU run traces host ops only)")
         return

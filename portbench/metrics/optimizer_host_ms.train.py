@@ -1,0 +1,9 @@
+"""optimizer_host_ms.train: wall ms a step of the train step's learning-rate
+set and Adam update (span `train_step.optimizer`) in the traced window,
+which the profiler stretches: compare commits, not the untraced wall."""
+
+from portbench.spans import wall_ms_per_unit
+
+
+def read(ctx):
+    return wall_ms_per_unit(ctx, "train_step.optimizer", "train_step")

@@ -173,6 +173,11 @@ def test_profile_step_traces_a_tiny_train_step_and_sampler(tmp_path):
         assert os.path.dirname(out["trace"]) == str(tmp_path / which)
         assert out["window_us"] > 0 and out["peak_gib"] is None
         assert out["device_us"] == 0 and out["named"] == {"K1": 0, "K2": 0}  # host ops only
+        spans = {name: (calls, dev) for name, calls, _, dev in out["spans"]}
+        per_call = (["train_step", "train_step.augment", "train_step.forward",
+                     "train_step.backward", "train_step.optimizer"] if which == "train" else
+                    ["sample.encode", "sample.decode", "sample.softmax"])
+        assert spans == {name: (profile_step.TRACED_CALLS, None) for name in per_call}
         profile_step.report(out)
 
 
