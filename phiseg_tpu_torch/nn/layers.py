@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from phiseg_tpu_torch.nn.normalization import BatchRenorm
+from phiseg_tpu_torch.ops.upsample_bilinear2x import upsample_bilinear2x
 
 # Flax BatchNorm(momentum=.99, epsilon=1e-3) (layers.py:164-169): the running
 # average keeps .99 of the old value, which is torch's momentum=0.01.
@@ -82,12 +83,17 @@ def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
 
 
 def upsample_bilinear(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Bilinear upsample of NCHW by an integer factor (ref layers.py:336-345).
+    """Bilinear x2 upsample of NCHW (ref layers.py:336-345), through the x2
+    op (ops/upsample_bilinear2x.py: its CUDA kernels on the card).
 
     jax.image.resize samples at half-pixel centres and renormalises the
     kernel at the border, which is align_corners=False with edge clamping.
+    `factor` keeps the JAX signature; 2 is the only one the models use and
+    the only one taken.
     """
-    return F.interpolate(x, scale_factor=factor, mode="bilinear", align_corners=False)
+    if factor != 2:
+        raise ValueError(f"upsample_bilinear takes a factor of 2, not {factor}")
+    return upsample_bilinear2x(x)
 
 
 def _triangle(x: torch.Tensor) -> torch.Tensor:

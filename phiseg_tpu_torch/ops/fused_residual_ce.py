@@ -111,28 +111,31 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the fused residual-CE kernels need the CUDA toolkit")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile csrc/fused_residual_ce.cu into a shared library (once per
-    source and flags; the file name carries their hash) and return its path.
-    Fills BUILD_INFO with the seconds taken and ptxas's report."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libfused_residual_ce_{digest}.so"
+def build(source: Path = SOURCE, stem: str = "fused_residual_ce",
+          info: Optional[Dict[str, object]] = None) -> Path:
+    """Compile a csrc/ source (by default K1/K2's) into the shared library
+    `_build/lib<stem>_<hash>.so` (once per source and flags; the hash is of
+    both) and return its path. Fills `info` (default BUILD_INFO) with the
+    seconds taken and ptxas's report."""
+    info = BUILD_INFO if info is None else info
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{stem}_{digest}.so"
     if out.exists():
-        BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
+        info.update(path=str(out), seconds=0.0, cached=True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
-                      ptxas=proc.stderr.strip())
+    info.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
+                ptxas=proc.stderr.strip())
     return out
 
 

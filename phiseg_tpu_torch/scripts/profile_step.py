@@ -11,8 +11,10 @@ draws) on `--batch` images (default 1), then traces 10 calls. One
 torch.profiler session (utils/profiling.py) writes its Chrome trace into
 OUTDIR (default logs/profile_<which>); read back, it gives the top device
 ops by self device time with their calls, the device ms per step (per
-image for the sampler), the device-busy share of the window, the fused CE
-kernels' launches by name, and the peak device memory of the window. The
+image for the sampler), the device-busy share of the window, the
+hand-written kernels' launches and device ms per step or call by name (the
+fused CE's K1 / K2, the x2 upsample's forward and backward), and the peak
+device memory of the window. The
 port's spans of the window (utils/profiling.span: `train_step` and its
 `train_step.augment` / `.forward` / `.backward` / `.optimizer`, or the
 sampler's `sample.encode` / `.decode` / `.softmax`) are listed by name with
@@ -35,17 +37,20 @@ WARM_STEPS = 3
 TRACED_CALLS = 10
 SAMPLES = 100
 TOP_OPS = 15  # device ops a report lists
-# the fused residual CE's kernel names in a trace: K1 and K2
-KERNEL_NAMES = {"K1": "frce_fwd_kernel", "K2": "frce_bwd_kernel"}
+# the hand-written kernels' names in a trace: the fused residual CE's K1 and
+# K2, the x2 bilinear upsample's forward and backward
+KERNEL_NAMES = {"K1": "frce_fwd_kernel", "K2": "frce_bwd_kernel",
+                "U2F": "bilinear2x_fwd", "U2B": "bilinear2x_bwd"}
 
 
 def capture(which: str, outdir: str, device="cuda", batch: int = 1, cfg=None) -> dict:
     """Run and trace `which`; returns the trace's summary
     (utils.profiling.summarize_trace) with the trace path, the units the
     window holds (steps, or images for the sampler), the peak device memory
-    in GiB (None on the CPU), the fused CE launches the window made
-    (`launches`, by the wrappers' counts) and the trace's K1 / K2 kernels
-    by name (`named`), and `spans`: (name, calls, host ms, device ms or None)
+    in GiB (None on the CPU), the hand-written kernels' launches the window
+    made (`launches`, by the wrappers' counts), the trace's launches of each
+    KERNEL_NAMES kernel (`named`) and its device ms (`named_ms`), and
+    `spans`: (name, calls, host ms, device ms or None)
     of the window's spans (utils.profiling.summarize_spans).
     `cfg` replaces the full-width bf16 `phiseg_7_5_synth`."""
     from phiseg_tpu_torch.data.augment_device import make_augment_fn
@@ -53,6 +58,7 @@ def capture(which: str, outdir: str, device="cuda", batch: int = 1, cfg=None) ->
     from phiseg_tpu_torch.engine.train import create_train_state, make_sample_fn, make_train_step
     from phiseg_tpu_torch.experiments import get_experiment
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
+    from phiseg_tpu_torch.ops import upsample_bilinear2x as up2
     from phiseg_tpu_torch.parallel.mesh import resolve_device
     from phiseg_tpu_torch.utils.profiling import (SPANS, ProfileSession, launches_named,
                                                   summarize_spans, summarize_trace)
@@ -95,6 +101,7 @@ def capture(which: str, outdir: str, device="cuda", batch: int = 1, cfg=None) ->
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     frce.reset_launch_counts()
+    up2.reset_launch_counts()
     session = ProfileSession(outdir, f"{which}_b{batch}" if which == "sampler" else which,
                              device)
     try:
@@ -103,9 +110,11 @@ def capture(which: str, outdir: str, device="cuda", batch: int = 1, cfg=None) ->
         path = session.stop()
     out = summarize_trace(path)
     out.update(which=which, batch=batch, units=units, trace=path,
-               launches=dict(frce.LAUNCHES), device=str(device),
+               launches={**frce.LAUNCHES, **up2.LAUNCHES}, device=str(device),
                peak_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30 if on_card else None,
                named={k: launches_named(out, name) for k, name in KERNEL_NAMES.items()},
+               named_ms={k: sum(d for n, d, _ in out["ops"] if name in n) / 1e3
+                         for k, name in KERNEL_NAMES.items()},
                spans=summarize_spans(SPANS.records()))
     return out
 
@@ -133,8 +142,10 @@ def report(summary: dict) -> None:
           f"({summary['busy_us'] / summary['window_us']:.2%} of it), "
           f"{busy_ms / summary['units']:.3f} device ms per {per}, "
           f"{summary['kernels']} kernels, peak memory {summary['peak_gib']:.3f} GiB")
-    print("fused CE kernels in the window: " + ", ".join(
-        f"{k} ({KERNEL_NAMES[k]}) {n}" for k, n in summary["named"].items()))
+    call = "step" if summary["which"] == "train" else "call"
+    print(f"hand-written kernels in the window, launches and device ms per {call}: " + ", ".join(
+        f"{k} ({KERNEL_NAMES[k]}) {n / TRACED_CALLS:g}, "
+        f"{summary['named_ms'][k] / TRACED_CALLS:.4f} ms" for k, n in summary["named"].items()))
     print(f"top {TOP_OPS} device ops by self device time:")
     print(f"  {'ms':>9s} {'calls':>6s} {'share':>6s}  name")
     for name, dur, calls in summary["ops"][:TOP_OPS]:

@@ -172,7 +172,10 @@ def test_profile_step_traces_a_tiny_train_step_and_sampler(tmp_path):
         assert out["units"] == units and os.path.exists(out["trace"])
         assert os.path.dirname(out["trace"]) == str(tmp_path / which)
         assert out["window_us"] > 0 and out["peak_gib"] is None
-        assert out["device_us"] == 0 and out["named"] == {"K1": 0, "K2": 0}  # host ops only
+        assert out["device_us"] == 0  # host ops only
+        assert out["named"] == {k: 0 for k in profile_step.KERNEL_NAMES} == {"K1": 0, "K2": 0,
+                                                                               "U2F": 0, "U2B": 0}
+        assert out["launches"]["upsample2x_fwd"] == out["launches"]["upsample2x_bwd"] == 0
         spans = {name: (calls, dev) for name, calls, _, dev in out["spans"]}
         per_call = (["train_step", "train_step.augment", "train_step.forward",
                      "train_step.backward", "train_step.optimizer"] if which == "train" else
