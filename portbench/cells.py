@@ -1,18 +1,23 @@
 """Finding a cell's parts by name: BENCHMARK.json's entries, the
-configuration's file, the traffic mix `traffic/<name>.json`, the limits of
-its comparison `limits/<cell>.json`, and each metric's reader
+configuration's file, its plain model reference `reference/<name>.py` (the
+file's "reference", else "model"), the traffic mix `traffic/<name>.json`,
+the limits of its comparison `limits/<cell>.json`, and each metric's reader
 `metrics/<metric>.py`, or `metrics/<stem>.py` for a metric `<stem>.<part>`
-that has no file of its own (one reader for every cell kind). A new cell or
-metric is new files and entries; no code here names one."""
+that has no file of its own (one reader for every cell kind). A new cell,
+metric or model family is new files and entries; no code here names one."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
 import os
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
+from portbench.reference import REQUIRED
+
 HERE = os.path.dirname(os.path.abspath(__file__))
+_REFERENCES: Dict[str, ModuleType] = {}  # by path: the reference modules loaded
 
 
 class Bench:
@@ -53,6 +58,24 @@ class Bench:
     def _json(self, sub: str, name: str) -> dict:
         with open(self._find(sub, f"{name}.json")) as f:
             return json.load(f)
+
+    def reference(self, config: dict) -> ModuleType:
+        """The plain model reference that a configuration's file names (see
+        portbench/reference/__init__.py), loaded by its path once a process."""
+        name = config.get("reference", "model")
+        if not name.isidentifier():
+            raise ValueError(f"a reference is named by a module name, not {name!r}")
+        path = self._find("reference", f"{name}.py")
+        if path not in _REFERENCES:
+            spec = importlib.util.spec_from_file_location(
+                f"portbench_reference_{len(_REFERENCES)}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            missing = [f for f in REQUIRED if not hasattr(mod, f)]
+            if missing:
+                raise AttributeError(f"reference {path} lacks {missing}")
+            _REFERENCES[path] = mod
+        return _REFERENCES[path]
 
     def traffic(self, workload: dict) -> dict:
         return self._json("traffic", workload["traffic"])

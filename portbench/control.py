@@ -13,8 +13,9 @@ configuration's), and for a training cell the fault of a step that trains
 on half its batch ("half_batch"). An eval cell's control also computes the
 metrics from the program's probabilities rounded to bfloat16 (the precision
 below their float32). --head-scale sets the Gaussian heads' initial scale
-against He normal (reference.model.HEAD_SCALE, 0.25 in every run) for a look
-at other weights. One JSON line per seed on standard output.
+against He normal (the reference module's HEAD_SCALE, 0.25 in every run of
+the model families) for a look at other weights. One JSON line per seed on
+standard output.
 """
 
 import argparse
@@ -32,7 +33,7 @@ if __name__ == "__main__":
 
 
 def readings(workload: str, seed: int, seconds: float, control: bool, device: str = "cuda",
-             root: str = ROOT, pkg=None) -> dict:
+             root: str = ROOT, pkg=None, head_scale=None) -> dict:
     import torch
 
     from portbench.cells import Bench
@@ -40,7 +41,11 @@ def readings(workload: str, seed: int, seconds: float, control: bool, device: st
 
     bench = Bench(root, pkg)
     cell = bench.workload(workload)
-    loop = make_loop(bench.config(cell)["experiment"], bench.traffic(cell), seed, device)
+    config = bench.config(cell)
+    module = bench.reference(config)
+    if head_scale is not None:
+        module.HEAD_SCALE = head_scale
+    loop = make_loop(config["experiment"], bench.traffic(cell), seed, device, module)
     t0 = time.perf_counter()
     loop.setup()
     setup = time.perf_counter() - t0
@@ -48,9 +53,8 @@ def readings(workload: str, seed: int, seconds: float, control: bool, device: st
     loop.release()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    from portbench.reference.model import HEAD_SCALE
-
-    out = {"seed": seed, "head_scale": HEAD_SCALE, "setup_s": setup, "units": win["units"]}
+    out = {"seed": seed, "head_scale": getattr(module, "HEAD_SCALE", None), "setup_s": setup,
+           "units": win["units"]}
     if loop.kind == "train":
         ref = loop.reference()
         out["program"] = compare_train(loop.program_out, ref)
@@ -85,12 +89,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--head-scale", type=float, default=None)
     args = ap.parse_args(argv)
-    if args.head_scale is not None:
-        from portbench.reference import model
-
-        model.HEAD_SCALE = args.head_scale
     for i, seed in enumerate(int(s) for s in args.seeds.split(",")):
-        r = readings(args.workload, seed, args.seconds, i < args.control_seeds)
+        r = readings(args.workload, seed, args.seconds, i < args.control_seeds,
+                     head_scale=args.head_scale)
         print(json.dumps(r), flush=True)
     return 0
 

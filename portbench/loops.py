@@ -18,10 +18,11 @@ Set-up makes the weights from the seed, builds the program, and warms up
 every shape the loop uses; a training cell also takes its first three steps
 there, through the loop's own call, and keeps what the check compares. After
 the window, `release` frees the program and `check` recomputes with the
-plain reference (portbench/reference) what the program produced: the three
-steps of a training cell, and a sample, drawn from the seed, of the window's
-eval batches or sampler calls. The noise of each checked unit is replayed
-from the program's generator state before that unit.
+configuration's plain reference module (portbench/reference/__init__.py
+says what it provides) what the program produced: the three steps of a
+training cell, and a sample, drawn from the seed, of the window's eval
+batches or sampler calls. The noise of each checked unit is replayed from
+the program's generator state before that unit.
 """
 
 from __future__ import annotations
@@ -38,7 +39,6 @@ import torch
 
 from portbench.reference import augment as RA
 from portbench.reference import metrics as RM
-from portbench.reference import model as R
 from portbench.weights import make_weights
 
 
@@ -53,12 +53,14 @@ def _median(xs) -> float:
 
 class Loop:
     """One cell's program, its window and its check. `cfg` is the config
-    file's "experiment", the program's config fields."""
+    file's "experiment", the program's config fields; `ref` the plain
+    reference module that the config file names."""
 
     kind = ""
 
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device: torch.device):
+    def __init__(self, cfg: dict, traffic: dict, seed: int, device: torch.device, ref):
         self.cfg, self.traffic, self.seed, self.device = cfg, traffic, seed, device
+        self.ref = ref
         self.batch = int(traffic["batch"])
         self.noise_dtype = getattr(torch, cfg["compute_dtype"])
         self.rng = random.Random(seed)
@@ -76,7 +78,8 @@ class Loop:
         from phiseg_tpu_torch.engine.train import build_model
 
         self.ecfg = ExperimentConfig.from_json(json.dumps(self.cfg))
-        self.w0 = make_weights(R.param_spec(self.cfg), self.seed, self.device)
+        self.w0 = make_weights(self.ref.param_spec(self.cfg), self.seed, self.device,
+                               self.ref.init_std)
         with torch.device(self.device):
             model = build_model(self.ecfg, self.device)
         model.load_state_dict(self.w0, strict=True)
@@ -97,7 +100,7 @@ class Loop:
         g.set_state(gstate)
         return [torch.randn((self.traffic["samples"], *shape), generator=g, device=self.device,
                             dtype=self.noise_dtype)
-                for shape in R.latent_shapes(self.cfg, batch)]
+                for shape in self.ref.latent_shapes(self.cfg, batch)]
 
     def warm_up(self) -> None:
         for _ in range(int(self.traffic["warmup_units"])):
@@ -207,13 +210,15 @@ class TrainLoop(Loop):
     def reference(self, prec: str = "f32", half_batch: bool = False):
         """The three checked steps in the reference: (losses, first
         gradients, change of the parameters), from the same weights,
-        batches and generator states. `half_batch` plants the fault of a
-        step that trains on half of its batch."""
+        batches and generator states, the family's train state carried
+        from step to step. `half_batch` plants the fault of a step that
+        trains on half of its batch."""
         self._reference_mode()
-        cfg, dev = self.cfg, self.device
+        cfg, dev, ref = self.cfg, self.device, self.ref
         params = {n: t.clone() for n, t in self.w0.items()}
-        names = R.trainable(R.param_spec(cfg))
-        adam = R.Adam(params, names)
+        names = ref.trainable(ref.param_spec(cfg))
+        state = ref.train_state(cfg, params)
+        opt = ref.optimizer(cfg, params, names)
         losses, first = [], None
         for i, (xb, sb, gstate) in enumerate(self.records):
             g = torch.Generator(device=dev)
@@ -228,8 +233,9 @@ class TrainLoop(Loop):
             def draw(shape, g=g):
                 return torch.randn(shape, generator=g, device=dev, dtype=self.noise_dtype).float()
 
-            loss, grads = R.grad_step(cfg, params, x, s, draw, prec)
-            adam.step(params, grads, R.lr_at(cfg, i))
+            loss, grads, state = ref.grad_step(cfg, params, x, s, draw, prec, generator=g,
+                                               state=state)
+            state = opt.step(params, grads, i, state)
             losses.append(float(loss))
             if first is None:
                 first = grads
@@ -354,8 +360,8 @@ class EvalLoop(_Sampled):
         for b0, gstate, *_ in self.kept:
             eps = self._noise(gstate, self.batch)
             x = torch.from_numpy(self.test_x[b0:b0 + self.batch, ..., None]).to(self.device)
-            out.append(torch.cat([R.sample_probs(self.cfg, self.params, x[b:b + 1],
-                                                 [e[:, b:b + 1] for e in eps], prec)
+            out.append(torch.cat([self.ref.sample_probs(self.cfg, self.params, x[b:b + 1],
+                                                        [e[:, b:b + 1] for e in eps], prec)
                                   for b in range(self.batch)], dim=1))
         return out
 
@@ -442,7 +448,8 @@ class SampleLoop(_Sampled):
         out = []
         for i, gstate, _ in self.kept:
             x = torch.from_numpy(self.test_x[i:i + self.batch, ..., None]).to(self.device)
-            out.append(R.sample_probs(self.cfg, self.params, x, self._noise(gstate, self.batch), prec))
+            out.append(self.ref.sample_probs(self.cfg, self.params, x,
+                                             self._noise(gstate, self.batch), prec))
         return out
 
     def program_answers(self):
@@ -462,6 +469,8 @@ def compare_sample(cand, ref) -> Dict[str, float]:
 KINDS = {"train": TrainLoop, "eval": EvalLoop, "sample": SampleLoop}
 
 
-def make_loop(cfg: dict, traffic: dict, seed: int, device) -> Loop:
-    return KINDS[traffic["kind"]](cfg, traffic, seed, torch.device(device))
+def make_loop(cfg: dict, traffic: dict, seed: int, device, ref) -> Loop:
+    """The traffic kind's loop over the program of `cfg`, checked against
+    the reference module `ref`."""
+    return KINDS[traffic["kind"]](cfg, traffic, seed, torch.device(device), ref)
 

@@ -24,6 +24,8 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from portbench.reference import AdamStep
+
 BN_EPS = 1e-3  # tf.layers.batch_normalization's epsilon in the source
 
 Params = Dict[str, torch.Tensor]
@@ -372,26 +374,14 @@ def lr_at(cfg: Mapping, step: int) -> float:
     return lr
 
 
-class Adam:
-    """Adam (Kingma and Ba) with beta 0.9 / 0.999 and eps 1e-8, the source's
-    tf.train.AdamOptimizer defaults, eps added to the bias-corrected root."""
+def train_state(cfg: Mapping, params: Params) -> None:
+    """Both families carry no train state from step to step."""
+    return None
 
-    def __init__(self, params: Params, names: Sequence[str]):
-        self.names = list(names)
-        self.m = {n: torch.zeros_like(params[n]) for n in self.names}
-        self.v = {n: torch.zeros_like(params[n]) for n in self.names}
-        self.t = 0
 
-    @torch.no_grad()
-    def step(self, params: Params, grads: Mapping[str, torch.Tensor], lr: float) -> None:
-        self.t += 1
-        b1, b2, eps = 0.9, 0.999, 1e-8
-        for n in self.names:
-            g = grads[n]
-            self.m[n].mul_(b1).add_(g, alpha=1 - b1)
-            self.v[n].mul_(b2).addcmul_(g, g, value=1 - b2)
-            denom = (self.v[n] / (1 - b2 ** self.t)).sqrt() + eps
-            params[n].sub_(lr * (self.m[n] / (1 - b1 ** self.t)) / denom)
+def optimizer(cfg: Mapping, params: Params, names: Sequence[str]) -> AdamStep:
+    """Both families train with Adam alone, at lr_at."""
+    return AdamStep(lambda step: lr_at(cfg, step), params, names)
 
 
 def trainable(spec) -> List[str]:
@@ -408,9 +398,11 @@ def one_hot_nchw(s: torch.Tensor, nlabels: int) -> torch.Tensor:
 
 
 def grad_step(cfg: Mapping, params: Params, x: torch.Tensor, s: torch.Tensor, draw: Draw,
-              prec: str = "f32") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              prec: str = "f32", generator: Optional[torch.Generator] = None, state=None):
     """One training forward and backward: x (B,H,W,C) float and s (B,H,W)
-    integer labels, already augmented. Returns (loss, gradients by name)."""
+    integer labels, already augmented. Returns (loss, gradients by name,
+    state): both families draw only normals, through `draw`, and carry no
+    train state, so `generator` is not read and `state` passes through."""
     names = trainable(param_spec(cfg))
     leaves = {n: params[n].detach().requires_grad_(True) for n in names}
     p = dict(params, **leaves)
@@ -420,7 +412,7 @@ def grad_step(cfg: Mapping, params: Params, x: torch.Tensor, s: torch.Tensor, dr
                          s_oh)
         grads = torch.autograd.grad(loss, [leaves[n] for n in names], allow_unused=True)
     return loss.detach(), {n: (torch.zeros_like(leaves[n]) if g is None else g)
-                           for n, g in zip(names, grads)}
+                           for n, g in zip(names, grads)}, state
 
 
 # ---------------------------------------------------------------------------

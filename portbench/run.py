@@ -43,11 +43,12 @@ def forbidden_loaded() -> list:
 
 
 class Context:
-    """What a metric's reader reads: the cell, the untraced window, the
-    trace summary (None without --trace 1) and the set-up seconds."""
+    """What a metric's reader reads: the cell, its reference module, the
+    untraced window, the trace summary (None without --trace 1) and the
+    set-up seconds."""
 
-    def __init__(self, cfg, traffic, device_name, setup_s, window, batch):
-        self.cfg, self.traffic, self.device_name = cfg, traffic, device_name
+    def __init__(self, cfg, ref, traffic, device_name, setup_s, window, batch):
+        self.cfg, self.ref, self.traffic, self.device_name = cfg, ref, traffic, device_name
         self.kind = traffic["kind"]
         self.setup_s = setup_s
         self.units = window["units"]
@@ -61,7 +62,7 @@ class Context:
     def flops_per_unit(self) -> int:
         from portbench.counts import unit_flops
 
-        return unit_flops(self.cfg, self.traffic)
+        return unit_flops(self.ref, self.cfg, self.traffic)
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
@@ -77,15 +78,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     cell = bench.workload(workload)
     config = bench.config(cell)
     traffic, limits = bench.traffic(cell), bench.limits(cell)
-    cfg = config["experiment"]
-    loop = make_loop(cfg, traffic, seed, device)
+    cfg, ref = config["experiment"], bench.reference(config)
+    loop = make_loop(cfg, traffic, seed, device, ref)
     loop.phases["start"] = time.perf_counter() - T_START
     loop.setup()
     setup_s = time.perf_counter() - T_START
     window = loop.window(seconds)
     dev = torch.device(device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    ctx = Context(cfg, traffic, name, setup_s, window, loop.batch)
+    ctx = Context(cfg, ref, traffic, name, setup_s, window, loop.batch)
     info = {"platform": "gpu" if dev.type == "cuda" else "cpu", "kind": name, "count": 1}
     if trace:
         fd, path = tempfile.mkstemp(suffix=".trace.json")

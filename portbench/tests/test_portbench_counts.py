@@ -29,7 +29,7 @@ def _model(cfg, d):
     from phiseg_tpu_torch.engine.train import build_model
 
     model = build_model(cfg, "cpu")
-    model.load_state_dict(make_weights(R.param_spec(d), 0, "cpu"))
+    model.load_state_dict(make_weights(R.param_spec(d), 0, "cpu", R.init_std))
     return model
 
 
@@ -46,7 +46,7 @@ def test_train_step_flops_match_the_program(name, levels):
         loss, _ = phiseg_objective(model(x, s_oh, generator=torch.Generator().manual_seed(0)), s_oh,
                                    cfg, model=model)
         loss.backward()
-    assert counts.train_step_flops(d, 3) == fc.get_total_flops() > 0
+    assert counts.train_step_flops(R, d, 3) == fc.get_total_flops() > 0
 
 
 @pytest.mark.parametrize("name,levels", [("phiseg_7_5_synth", 3), ("probunet_synth", 1)])
@@ -57,7 +57,7 @@ def test_sampler_flops_match_the_program(name, levels):
     sample = make_sample_fn(_model(cfg, d), 4)
     with FlopCounterMode(display=False) as fc:
         sample(torch.randn(2, 32, 32, 1), torch.Generator().manual_seed(0))
-    assert counts.sample_flops(d, 2, 4, metrics=False) == fc.get_total_flops() > 0
+    assert counts.sample_flops(R, d, 2, 4, metrics=False) == fc.get_total_flops() > 0
 
 
 @pytest.mark.parametrize("name,k1_mb,k2_mb", [("phiseg_7_5.json", 9.44, 17.30),
@@ -79,5 +79,5 @@ def test_full_width_flops_are_the_published_counts():
 
     with open(f"{PKG}/configs/phiseg_7_5.json") as f:
         cfg = json.load(f)["experiment"]
-    assert round(counts.train_step_flops(cfg, 12) / 1e9, 2) == 900.47
-    assert round(counts.sample_flops(cfg, 1, 100, metrics=False) / 1e9, 2) == 1913.52
+    assert round(counts.train_step_flops(R, cfg, 12) / 1e9, 2) == 900.47
+    assert round(counts.sample_flops(R, cfg, 1, 100, metrics=False) / 1e9, 2) == 1913.52

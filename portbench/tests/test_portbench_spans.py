@@ -96,7 +96,8 @@ def test_a_traced_tiny_train_loop_has_every_span_read(tmp_path):
     bench = Bench(d, d)
     cell = bench.workload("phiseg_7_5-train")
     traffic = dict(bench.traffic(cell), warmup_units=1, traced_units=3)
-    loop = make_loop(bench.config(cell)["experiment"], traffic, 2 ** 31 + 9, "cpu")
+    config = bench.config(cell)
+    loop = make_loop(config["experiment"], traffic, 2 ** 31 + 9, "cpu", bench.reference(config))
     loop.setup()
     assert loop.traced(os.path.join(d, "t.json")) == 3
     loop.release()

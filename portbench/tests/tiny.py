@@ -1,7 +1,9 @@
 """A tiny copy of the benchmark's cells, written into a directory, for the
-CPU tests: the cells' configurations at R=5, n0=4, 32x32 (L=3 for PHiSeg),
-float32 or the cell's own bfloat16, with the cells' traffic at a small
-batch and few samples, and the committed limits."""
+CPU tests: the cells' configurations at R=5, n0=4, 32x32 (SHRINK), then a
+configuration file's own "tiny" overrides where it has them, else its
+family's in FAMILY_TINY (L=3 for PHiSeg), in float32 or the cell's own
+bfloat16, with the cells' traffic at a small batch and few samples, and the
+committed limits."""
 
 from __future__ import annotations
 
@@ -14,6 +16,16 @@ ROOT = os.path.dirname(PKG)
 
 SHRINK = {"resolution_levels": 5, "n0": 4, "image_size": [32, 32, 1], "batch_size": 4,
           "synth_n_train": 16, "synth_n_test": 8}
+# the overrides of a family whose configuration file has no "tiny" of its own
+FAMILY_TINY = {"phiseg": {"latent_levels": 3}}
+
+
+def tiny_experiment(doc: dict, compute_dtype: str = "float32") -> dict:
+    """A configuration file's experiment, shrunk: SHRINK and the compute
+    dtype, then the file's "tiny" object, or its family's FAMILY_TINY."""
+    exp = dict(doc["experiment"], **SHRINK, compute_dtype=compute_dtype)
+    exp.update(doc.get("tiny", FAMILY_TINY.get(exp["model_family"], {})))
+    return exp
 
 
 def write_bench(d: str, compute_dtype: str = "float32", limits_from=None) -> dict:
@@ -26,10 +38,7 @@ def write_bench(d: str, compute_dtype: str = "float32", limits_from=None) -> dic
     for c in bench["configs"]:
         with open(os.path.join(ROOT, c["file"])) as f:
             doc = json.load(f)
-        exp = doc["experiment"]
-        exp.update(SHRINK, compute_dtype=compute_dtype)
-        if exp["model_family"] == "phiseg":
-            exp["latent_levels"] = 3
+        doc["experiment"] = tiny_experiment(doc, compute_dtype)
         c["file"] = f"configs/{c['name']}.json"
         with open(os.path.join(d, c["file"]), "w") as f:
             json.dump(doc, f)
