@@ -54,7 +54,7 @@ class ExperimentConfig:
     log_dir_name: str = "lidc"
 
     # -- architecture (ref phiseg_7_5.py:8-19)
-    model_family: str = "phiseg"  # phiseg | prob_unet | det_unet
+    model_family: str = "phiseg"  # phiseg | prob_unet | det_unet | hpu_net
     latent_levels: int = 5
     resolution_levels: int = 7
     n0: int = 32
@@ -155,8 +155,9 @@ class ExperimentConfig:
 
     @property
     def effective_latent_levels(self) -> int:
-        """The latent levels the model has: 1 for the U-Net families."""
-        return 1 if self.model_family != "phiseg" else self.latent_levels
+        """The latent levels the model has: latent_levels for PHiSeg and the
+        HPU-Net, 1 for the (probabilistic) U-Nets."""
+        return self.latent_levels if self.model_family in ("phiseg", "hpu_net") else 1
 
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)

@@ -11,16 +11,23 @@ Loss-dict keys match the reference names. Under a mesh every entry is the
 global-batch mean on every rank: the CE through K3 (`fused_residual_ce_dp`),
 the KL levels through one all_reduce (ref phiseg_tpu/engine/objective.py:31-50,
 where the means over a global array are global by construction).
+
+The HPU-Net trains on `geco_objective` instead (deepmind-research
+hierarchical_probabilistic_unet/model.py `loss`, geco_utils.py `ce_loss`),
+with the constants of models/hpunet.py.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from phiseg_tpu_torch.engine.config import ExperimentConfig
+from phiseg_tpu_torch.models.hpunet import KAPPA, TOP_K_SHARE
 from phiseg_tpu_torch.models.segvae import ModelOutputs
 from phiseg_tpu_torch.nn.layers import at_least_f32
 from phiseg_tpu_torch.nn.losses import kl_two_gauss_diag_cov
@@ -29,6 +36,7 @@ from phiseg_tpu_torch.ops.fused_residual_ce import (
     fused_residual_ce_dp,
     residual_ce_plain,
 )
+from phiseg_tpu_torch.utils.profiling import span
 
 
 def residual_multinoulli_loss(s_out_list: Sequence[torch.Tensor], s_oh: torch.Tensor,
@@ -113,4 +121,75 @@ def phiseg_objective(outputs: ModelOutputs, s_oh: torch.Tensor, cfg: ExperimentC
         total = total + wd
 
     loss_dict["total_loss"] = total
+    return total, loss_dict
+
+
+def top_k_mask(xe: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """geco_utils.ce_loss's mask over the flat pixels of a batch: 1 at the
+    floor(TOP_K_SHARE * pixels) pixels of the largest log(xe / sum(xe)) +
+    Gumbel noise, 0 elsewhere; xe is under stop-gradient. The Gumbel noise
+    is -log(-log(u + 1e-20) + 1e-20) of one uniform a pixel, drawn from
+    `generator` in xe's dtype and order."""
+    sg = xe.detach()
+    u = torch.rand(sg.shape, generator=generator, device=sg.device, dtype=sg.dtype)
+    score = torch.log(sg / sg.sum()) - torch.log(-torch.log(u + 1e-20) + 1e-20)
+    k = int(math.floor(sg.numel() * TOP_K_SHARE))
+    return torch.zeros_like(sg).index_fill_(0, torch.topk(score, k, sorted=False).indices, 1.0)
+
+
+def gauss_kl(mu0: torch.Tensor, sigma0: torch.Tensor, mu1: torch.Tensor,
+             sigma1: torch.Tensor) -> torch.Tensor:
+    """KL(N(mu0, sigma0^2) || N(mu1, sigma1^2)) of diagonal Gaussians,
+    analytic (tfd.kl_divergence of two MultivariateNormalDiag), summed over
+    the pixels and latent channels of each image, mean over the batch."""
+    b = mu0.shape[0]
+    mu0, sigma0, mu1, sigma1 = (at_least_f32(t).reshape(b, -1) for t in (mu0, sigma0, mu1, sigma1))
+    per = (torch.log(sigma1) - torch.log(sigma0)
+           + (sigma0.square() + (mu0 - mu1).square()) / (2.0 * sigma1.square()) - 0.5)
+    return per.sum(dim=1).mean()
+
+
+def geco_objective(outputs: ModelOutputs, s_oh: torch.Tensor, model: nn.Module,
+                   generator: Optional[torch.Generator] = None, mesh=None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The HPU-Net's GECO loss lagmul * (ma(rec) - KAPPA * k/B) + KL and the
+    source's summaries (model.py `loss`):
+
+      rec_loss_sum      the batch mean of each image's CE summed over its
+                        top-k pixels (top_k_mask over the whole batch);
+      rec_loss_mean     that CE over the selected pixels, their mean;
+      kl_{i}, kl_sum    each latent level's KL (i counts from the
+                        coarsest, as the source's levels do) and their sum;
+      ma_rec_loss_mean  the debiased moving average of rec_loss_sum over
+                        num_valid_pixels, the selected pixels an image;
+      lagmul            the multiplier before this step's update;
+      total_loss        the loss.
+
+    The moving average's buffers advance only in training mode (a train
+    step), not in an eval loss. The top-k's uniforms come from `generator`
+    after the forward's draws (span `train_step.geco` around the top-k, the
+    moving average and the multiplier)."""
+    if mesh is not None:
+        raise NotImplementedError("the GECO objective runs on one rank's whole batch")
+    logits = at_least_f32(outputs.s_out_list[0])
+    b = logits.shape[0]
+    xe = -(s_oh.to(logits.dtype) * F.log_softmax(logits, dim=-1)).sum(dim=-1).reshape(-1)
+    L = len(outputs.q_mu)
+    kls = {f"kl_{L - 1 - i}": gauss_kl(outputs.q_mu[i], outputs.q_sigma[i], outputs.p_mu[i],
+                                       outputs.p_sigma[i]) for i in reversed(range(L))}
+    kl_sum = torch.stack(list(kls.values())).sum()
+    with span("train_step.geco"):
+        mask = top_k_mask(xe, generator)
+        masked = (mask * xe).reshape(b, -1)
+        rec_sum = masked.sum(dim=1).mean()
+        rec_mean = masked.sum() / mask.sum()
+        num_valid = mask.reshape(b, -1).sum(dim=1).mean()
+        geco = model.geco
+        ma = geco.moving_average(rec_sum, update=model.training)
+        constraint = ma - KAPPA * num_valid
+        lagmul = geco.multiplier()
+        total = lagmul * constraint + kl_sum
+    loss_dict = {"rec_loss_sum": rec_sum, "rec_loss_mean": rec_mean, "kl_sum": kl_sum, **kls,
+                 "ma_rec_loss_mean": ma / num_valid, "num_valid_pixels": num_valid,
+                 "lagmul": lagmul, "total_loss": total}
     return total, loss_dict

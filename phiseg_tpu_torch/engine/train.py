@@ -14,10 +14,12 @@ eval batch-norm mode, where the JAX package vmaps a decode over S keys.
 
 Spans (utils/profiling.span; nothing but one check each with no profiler
 running) name the phases: `train_step` (unit: the state's step) with
-`train_step.augment`, `.forward` (one-hot, forward, objective), `.backward`
-(zero_grad, backward), `.grad_allreduce` (under a mesh) and `.optimizer`
-(the rate and the update); the sampler's `sample.encode`, `sample.decode`
-(noise, the S x B decode, the level sum), `sample.softmax` and
+`train_step.augment`, `.forward` (one-hot, forward, objective; the
+HPU-Net's `.geco` inside it), `.backward` (zero_grad, backward),
+`.grad_allreduce` (under a mesh) and `.optimizer` (the rate and the
+update); the sampler's `sample.encode`, `sample.decode` (noise, the S x B
+decode, the level sum; `sample.decode.tile` around the cache's tiling
+inside it, and the HPU-Net's `.latents` and `.stitch`), `sample.softmax` and
 `sample.assemble` (under a mesh), with CUDA events on x's device and the
 sampler's call count as their unit.
 """
@@ -33,7 +35,8 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from phiseg_tpu_torch.engine.config import ExperimentConfig
-from phiseg_tpu_torch.engine.objective import phiseg_objective
+from phiseg_tpu_torch.engine.objective import geco_objective, phiseg_objective
+from phiseg_tpu_torch.models.hpunet import init_hpunet_weights_
 from phiseg_tpu_torch.models.segvae import SegVAE, aggregate_levels
 from phiseg_tpu_torch.nn.layers import init_weights_, set_batch_norm_mesh
 from phiseg_tpu_torch.nn.losses import one_hot
@@ -46,7 +49,8 @@ def build_model(cfg: ExperimentConfig, device: DeviceLike = "cuda",
     """The config's SegVAE on `device`: the card unless the caller asks for
     the CPU (without a card, "cuda" raises). With `seed`, its weights are
     drawn on the CPU from a generator with that seed (so every device gets
-    the same init) before the move."""
+    the same init) before the move: Flax's init, or the HPU-Net's published
+    one (models/hpunet.py `init_hpunet_weights_`)."""
     device = resolve_device(device)
     model = SegVAE(
         model_family=cfg.model_family,
@@ -61,7 +65,8 @@ def build_model(cfg: ExperimentConfig, device: DeviceLike = "cuda",
         image_channels=cfg.image_size[2],
     )
     if seed is not None:
-        init_weights_(model, torch.Generator().manual_seed(seed))
+        init = init_hpunet_weights_ if cfg.model_family == "hpu_net" else init_weights_
+        init(model, torch.Generator().manual_seed(seed))
     return model.to(device)
 
 
@@ -123,6 +128,12 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     losses are detached device tensors. use_fused_ce=None uses the fused
     residual-CE kernels when x is on a CUDA device.
 
+    The HPU-Net ("hpu_net") trains on objective.geco_objective instead,
+    whose top-k draws one uniform a pixel from `generator` after the
+    posterior's normals (augmentation, then the posterior's levels from the
+    coarsest, then the uniforms), and clamps its multiplier at >= 0 after
+    the optimiser's step. It takes no mesh.
+
     With a mesh (parallel.mesh.Mesh), x and s are this rank's shard of the
     global batch, batch norm is sync-BN, the losses are global means, and
     the gradients are averaged over the ranks before the optimiser; pass the
@@ -130,6 +141,7 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     """
     lr_fn = lr_schedule_from_dict(cfg.lr_schedule)
     sync_bn_model = None  # the model whose batch norms this step made sync-BN
+    geco = cfg.model_family == "hpu_net"
 
     def step(state: TrainState, x: torch.Tensor, s: torch.Tensor,
              generator: Optional[torch.Generator] = None,
@@ -148,8 +160,7 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
                     set_batch_norm_mesh(model, mesh)
                     sync_bn_model = model
                 outputs = model(x, s_oh, eps=eps, generator=generator)
-                loss, loss_dict = phiseg_objective(outputs, s_oh, cfg, model=model,
-                                                   use_fused_ce=fused, mesh=mesh)
+                loss, loss_dict = _objective(cfg, outputs, s_oh, model, generator, fused, mesh)
             with span("train_step.backward"):
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
@@ -161,11 +172,21 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
                 for group in opt.param_groups:
                     group["lr"] = lr
                 opt.step()
+                if geco:
+                    model.geco.clamp_()
             state.step += 1
             return {k: v.detach() for k, v in loss_dict.items()}
 
     step.mesh = mesh
     return step
+
+
+def _objective(cfg: ExperimentConfig, outputs, s_oh: torch.Tensor, model: SegVAE,
+               generator: Optional[torch.Generator], use_fused_ce: bool, mesh=None):
+    """The family's objective: GECO for the HPU-Net, PHiSeg's for the others."""
+    if cfg.model_family == "hpu_net":
+        return geco_objective(outputs, s_oh, model, generator, mesh)
+    return phiseg_objective(outputs, s_oh, cfg, model=model, use_fused_ce=use_fused_ce, mesh=mesh)
 
 
 def fused_ce_rule(use_fused_ce: Optional[bool], x: torch.Tensor) -> bool:
@@ -180,15 +201,16 @@ def make_eval_loss_fn(model: SegVAE, cfg: ExperimentConfig):
     _do_validation :537-549; JAX engine/train.py:197-207): build
     eval_loss(x, s, generator=None, eps=None) -> loss dict of detached
     tensors. The CE goes through K1 by `fused_ce_rule` of
-    `cfg.use_fused_loss_kernel`."""
+    `cfg.use_fused_loss_kernel`; the HPU-Net's GECO loss reads its moving
+    average without advancing it."""
 
     def eval_loss(x: torch.Tensor, s: torch.Tensor, generator: Optional[torch.Generator] = None,
                   eps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         s_oh = one_hot(s, cfg.nlabels)
         with torch.no_grad(), _eval_mode(model):
             outputs = model(x, s_oh, eps=eps, generator=generator)
-            _, loss_dict = phiseg_objective(outputs, s_oh, cfg, model=model,
-                                            use_fused_ce=fused_ce_rule(cfg.use_fused_loss_kernel, x))
+            _, loss_dict = _objective(cfg, outputs, s_oh, model, generator,
+                                      fused_ce_rule(cfg.use_fused_loss_kernel, x))
         return loss_dict
 
     return eval_loss
@@ -235,7 +257,8 @@ def _decode_draws(model: SegVAE, cache, x: torch.Tensor, num_samples: int, lo: i
                            dtype=model.dtype)
                for shape in model.latent_shapes(b)]
     eps = [e[lo:hi].reshape(n * b, *e.shape[2:]) for e in eps]
-    cache = model.repeat_cache(cache, n)
+    with span("sample.decode.tile", device=x.device):
+        cache = model.repeat_cache(cache, n)
     return [t.reshape(n, b, *t.shape[1:]) for t in model.decode_sample(cache, eps=eps)]
 
 

@@ -7,6 +7,15 @@ One entry per reference experiment module (phiseg/experiments/*.py):
   detunet            -- deterministic U-Net, annotator 0,
                         no KL, log dir 'lidc2'              (detunet.py)
   *_1annot           -- single-annotator variants (annotator_range=[0])
+  hpunet             -- the Hierarchical Probabilistic U-Net (Kohl et al.
+                        2019) at its published widths: R=8, n0=24, four
+                        latent levels of zdim 1, no norm, GECO training
+                        (deepmind-research hierarchical_probabilistic_unet/
+                        model.py defaults); batch 12 as the LIDC jobs above,
+                        Adam at 1e-4: at their 1e-3 the unnormalised net's
+                        loss leaves its range within 10 steps at full width
+                        (non-finite by step 20 in bf16). The JAX package has
+                        no such entry.
 
 plus `*_synth` variants of each that swap LIDC for the in-memory synthetic
 dataset (no reference equivalent; used by tests/bench and for running
@@ -69,6 +78,18 @@ detunet = _register(_base(
     zdim0=6,
     annotator_range=(0,),
     kl_divergence_loss_weight=None,
+))
+
+hpunet = _register(_base(
+    experiment_name="hpunet",
+    model_family="hpu_net",
+    n0=24,
+    resolution_levels=8,
+    latent_levels=4,
+    zdim0=1,
+    norm="none",
+    nlabels=2,
+    lr_schedule={0: 1e-4},
 ))
 
 phiseg_7_5_1annot = _register(phiseg_7_5.replace(

@@ -179,7 +179,7 @@ def test_profile_step_traces_a_tiny_train_step_and_sampler(tmp_path):
         spans = {name: (calls, dev) for name, calls, _, dev in out["spans"]}
         per_call = (["train_step", "train_step.augment", "train_step.forward",
                      "train_step.backward", "train_step.optimizer"] if which == "train" else
-                    ["sample.encode", "sample.decode", "sample.softmax"])
+                    ["sample.encode", "sample.decode", "sample.decode.tile", "sample.softmax"])
         assert spans == {name: (profile_step.TRACED_CALLS, None) for name in per_call}
         profile_step.report(out)
 

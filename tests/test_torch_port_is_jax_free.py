@@ -157,3 +157,22 @@ main(["results_table", "lidc_bf/phiseg_7_5_bf", "lidc_bf/probunet_bf", "lidc2_bf
     assert lines[0] == "| experiment (n=256) | GED² ↓ | GED² unbiased ↓ | S_NCC ↑ | fg Dice ↑ |"
     assert lines[2].startswith("| phiseg_7_5_bf | 0.109 ± 0.037 |")
     assert lines[-1].startswith("floor(probunet_bf): 0.0896")
+
+
+def test_the_hpunet_reference_imports_neither_package():
+    """reference_torch/hpunet.py imports and samples with jax, phiseg_tpu and
+    phiseg_tpu_torch blocked."""
+    out = _run_blocked(r"""
+sys.modules["phiseg_tpu_torch"] = None
+import torch
+from reference_torch import hpunet as R
+cfg = {"model_family": "hpu_net", "norm": "none", "resolution_levels": 3, "latent_levels": 1,
+       "n0": 2, "zdim0": 1, "image_size": [8, 8, 1], "nlabels": 2}
+params = {n: torch.randn(s) * 0.1 for n, s, _ in R.param_spec(cfg)}
+eps = [torch.randn((2, *s)) for s in R.latent_shapes(cfg, 1)]
+p = R.sample_probs(cfg, params, torch.randn(1, 8, 8, 1), eps)
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in
+                ("jax", "phiseg_tpu", "phiseg_tpu_torch") and sys.modules[k] is not None)
+print("OK", tuple(p.shape), loaded)
+""")
+    assert out.strip() == "OK (2, 1, 8, 8, 2) []"

@@ -305,8 +305,9 @@ def test_prefetch_wait_reads_the_producers_cpu_clock(span_log):
 
 def test_quant_eval_spans_each_call(span_log):
     """make_quant_eval_fn records `eval.sample` (with the sampler's spans
-    inside) and `eval.metrics` once a call, its unit the call's count; on
-    the CPU no span has device events."""
+    inside, and the cache's tiling inside `sample.decode`) and
+    `eval.metrics` once a call, its unit the call's count; on the CPU no
+    span has device events."""
     from phiseg_tpu_torch.engine.train import build_model
     from phiseg_tpu_torch.engine.validation import make_quant_eval_fn
 
@@ -323,6 +324,8 @@ def test_quant_eval_spans_each_call(span_log):
     assert top == [("eval.sample", 1), ("eval.metrics", 1), ("eval.sample", 2),
                    ("eval.metrics", 2)]
     inner = [(r.name, r.parent.name, r.unit) for r in recs if r.parent is not None]
-    assert inner == [(n, "eval.sample", u) for u in (1, 2)
-                     for n in ("sample.encode", "sample.decode", "sample.softmax")]
+    assert inner == [(n, p, u) for u in (1, 2)
+                     for n, p in (("sample.encode", "eval.sample"), ("sample.decode", "eval.sample"),
+                                  ("sample.decode.tile", "sample.decode"),
+                                  ("sample.softmax", "eval.sample"))]
     assert all(r.events is None and r.device_ms() is None for r in recs)
