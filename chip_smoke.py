@@ -121,6 +121,22 @@ Phases, each fatal on failure:
      ELASTIC_IMAGE_ATOL, labels equal but where the warped one-hot ties
      (counted); the augmentation's device ms with and without the field;
      ELASTIC_STEPS steps with do_elasticaug on, K1 and K2 once a step;
+ 14b. the train step as one CUDA graph (engine/step_graph.py) against the
+     eager step, from one seed and the same batches at full width, batch 12,
+     augmentation on, cuDNN deterministic: every trainable family
+     (GRAPH_FAMILIES) in f32 with TF32 off, then `phiseg_7_5_synth` in its
+     bf16, norm batch_bf16, group, layer, instance and renorm, and
+     optimizer "momentum" (SGD, its buffers made zero); GRAPH_STEPS
+     steps of one capture and as many replays, a step at a tenth of the rate
+     and a half batch, each captured again (norms: GRAPH_NORM_STEPS steps,
+     one capture), against eager steps with the graph's Adam settings
+     (fused, capturable): the generator's state bitwise equal after every
+     step, losses and every parameter tensor within KERNEL_STEP_LOSS_TOL
+     (f32) or BF16_STEP_LOSS_TOL (bf16), the hand-written kernels' launches
+     equal; the gaps to eager steps with the config's own Adam printed, and
+     in f32 the second step's total loss, after one update, held to it
+     within KERNEL_STEP_LOSS_TOL;
+     then ms a step of GRAPH_TIMED_STEPS queued steps of each path, in turns;
  15. the step profiler: PROFILE_ITERS steps through the train CLI with
      PHISEG_PROFILE_DIR and PHISEG_PROFILE_STEPS; its one Chrome trace read
      back: nonzero device time, K1 and K2 by their kernel names once per
@@ -2598,6 +2614,202 @@ def phase_elastic():
     return {"launches": launches, "ms": ms, "image_err": img_err}
 
 
+GRAPH_FAMILIES = ("phiseg_7_5_synth", "probunet_synth", "detunet_synth", "hpunet_synth")
+GRAPH_STEPS = 5        # the graph phase: steps at the first rate, one capture
+GRAPH_NORM_STEPS = 3   # the graph phase: steps of each other norm and of SGD
+GRAPH_TIMED_STEPS = 30  # the graph phase: steps timed of each path
+
+
+def _graph_run(cfg, batches, capture: bool, graph_adam: bool = False):
+    """`batches` through make_train_step from the config's seeded init and
+    one generator seed, as a graph or eagerly (with `graph_adam`, Adam set
+    as a capture sets it, step_graph.graph_settings): the losses, the
+    generator's state after each step, the parameters after the last, the
+    launches of the hand-written kernels and step_graph.COUNTS."""
+    import torch
+
+    from phiseg_tpu_torch.data.augment_device import make_augment_fn
+    from phiseg_tpu_torch.engine import step_graph
+    from phiseg_tpu_torch.engine.train import create_train_state, make_train_step
+    from phiseg_tpu_torch.ops import fused_residual_ce as frce
+    from phiseg_tpu_torch.ops import upsample_bilinear2x as up2
+
+    state = create_train_state(cfg, "cuda")
+    if graph_adam:
+        for group in state.optimizer.param_groups:
+            group.update(step_graph.graph_settings(state.optimizer))
+    augment = (make_augment_fn(cfg.augmentation_options, cfg.nlabels)
+               if cfg.augment_on_device and cfg.augmentation_options else None)
+    step = make_train_step(cfg, augment, use_fused_ce=cfg.use_fused_loss_kernel, capture=capture)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+    frce.reset_launch_counts()
+    up2.reset_launch_counts()
+    step_graph.reset_counts()
+    losses, gens, counts = [], [], []
+    for x, s in batches:
+        losses.append({k: float(v) for k, v in step(state, x, s, gen).items()})
+        gens.append(gen.get_state())
+        counts.append(dict(step_graph.COUNTS))
+    out = {"losses": losses, "gens": gens, "counts": counts,
+           "params": {n: p.detach().float().clone() for n, p in state.model.named_parameters()},
+           "launches": {**frce.LAUNCHES, **up2.LAUNCHES}}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _run_gaps(a, b):
+    """(worst loss relative gap over the steps and keys, each parameter
+    tensor's relative L2 gap) of run a from run b."""
+    loss = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+               for x, y in zip(a["losses"], b["losses"]) for k in y)
+    rel = {n: _rel_l2({n: a["params"][n]}, {n: b["params"][n]}) if b["params"][n].any()
+           else float(a["params"][n].abs().max()) for n in b["params"]}
+    return loss, rel
+
+
+def _graph_vs_eager(name: str, cfg, batches, tol: float, want_counts,
+                    first_update_tol=None) -> dict:
+    """The same batches as a graph and eagerly with the graph's Adam
+    settings: the generator bitwise equal after every step, the losses and
+    every parameter tensor within `tol` (relative; a tensor by its relative
+    L2), the same launches, and the graph's (captures, replays) after each
+    step `want_counts`. The eager steps with the caller's Adam (foreach, its
+    step counts on the host) are printed beside: Adam's normalised update
+    carries the two updates' round-off on, growing with the steps, so only
+    the second step's total loss, after one update, is held to
+    `first_update_tol` where it is given."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True  # the convolutions' own round-off out of the way
+    try:
+        g = _graph_run(cfg, batches, True)
+        e = _graph_run(cfg, batches, False, graph_adam=True)
+        plain = _graph_run(cfg, batches, False)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    gens_equal = all(torch.equal(a, b) for a, b in zip(g["gens"], e["gens"]))
+    plain_gens = all(torch.equal(a, b) for a, b in zip(g["gens"], plain["gens"]))
+    loss_gap, rel = _run_gaps(g, e)
+    plain_loss, plain_rel = _run_gaps(g, plain)
+    worst, plain_worst = max(rel, key=rel.get), max(plain_rel, key=plain_rel.get)
+    counts = [(c["captures"], c["replays"]) for c in g["counts"]]
+    say(f"graph phase, {name}: {len(batches)} steps, graph vs eager with the graph's Adam: "
+        f"generator states equal after every step {gens_equal}; worst loss relative gap "
+        f"{loss_gap:.3e}; parameters relative L2 all {_rel_l2(g['params'], e['params']):.3e}, "
+        f"worst tensor {worst} {rel[worst]:.3e} (tol {tol:g}); launches graph {g['launches']} "
+        f"eager {e['launches']}; (captures, replays) after each step {counts}, eager steps "
+        f"{e['counts'][-1]['eager']}; total loss {g['losses'][0]['total_loss']:.6g} -> "
+        f"{g['losses'][-1]['total_loss']:.6g}")
+    say(f"graph phase, {name}: graph vs eager with the caller's Adam: generator states equal "
+        f"{plain_gens}; worst loss relative gap {plain_loss:.3e}; parameters relative L2 all "
+        f"{_rel_l2(g['params'], plain['params']):.3e}, worst tensor {plain_worst} "
+        f"{plain_rel[plain_worst]:.3e}; total loss per step, graph "
+        f"{[round(x['total_loss'], 6) for x in g['losses']]}, eager "
+        f"{[round(x['total_loss'], 6) for x in plain['losses']]}")
+    first = abs(g["losses"][1]["total_loss"] - plain["losses"][1]["total_loss"]) \
+        / abs(plain["losses"][1]["total_loss"])
+    say(f"graph phase, {name}: the second step's total loss, graph vs eager with the caller's "
+        f"Adam: relative gap {first:.3e}"
+        + (f" (tol {first_update_tol:g})" if first_update_tol is not None else ""))
+    if not gens_equal or not loss_gap <= tol or not rel[worst] <= tol:
+        fail(f"graph phase, {name}: the graph's steps disagree with the eager steps")
+    if first_update_tol is not None and not first <= first_update_tol:
+        fail(f"graph phase, {name}: one update of the graph's Adam parts from the caller's")
+    if g["launches"] != e["launches"] or g["launches"] != plain["launches"]:
+        fail(f"graph phase, {name}: launches {g['launches']} (graph) vs {e['launches']} (eager)")
+    if counts != want_counts or e["counts"][-1] != {"captures": 0, "replays": 0,
+                                                    "eager": len(batches)}:
+        fail(f"graph phase, {name}: (captures, replays) {counts}, not {want_counts}")
+    return {"loss_gap": loss_gap, "param_gap": rel[worst], "launches": g["launches"],
+            "plain_loss_gap": plain_loss, "plain_param_gap": plain_rel[plain_worst],
+            "first_update_gap": first}
+
+
+def _graph_timing(cfg, batch) -> dict:
+    """ms a step of GRAPH_TIMED_STEPS steps queued back to back and one
+    synchronise, as a graph and eagerly, after three steps each."""
+    import torch
+
+    from phiseg_tpu_torch.data.augment_device import make_augment_fn
+    from phiseg_tpu_torch.engine.train import create_train_state, make_train_step
+
+    out = {}
+    for capture in (True, False, True, False):
+        state = create_train_state(cfg, "cuda")
+        step = make_train_step(cfg, make_augment_fn(cfg.augmentation_options, cfg.nlabels),
+                               capture=capture)
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+        for _ in range(3):
+            step(state, *batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_TIMED_STEPS):
+            step(state, *batch, gen)
+        torch.cuda.synchronize()
+        out.setdefault("graph" if capture else "eager", []).append(
+            1000.0 * (time.perf_counter() - t0) / GRAPH_TIMED_STEPS)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_graph():
+    """The train step as one CUDA graph against the eager step, at full width
+    and batch 12 with on-device augmentation: every trainable family in
+    f32 with TF32 off (losses and parameters within KERNEL_STEP_LOSS_TOL),
+    then `phiseg_7_5_synth` in its bf16, the other norms and SGD with
+    momentum (within BF16_STEP_LOSS_TOL), cuDNN deterministic: GRAPH_STEPS steps of one
+    capture and as many replays, a step at a tenth of the rate (captured
+    again), then a half batch (captured again); the generator bitwise equal
+    after each step, the launches equal. Last, ms a step of each path."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.experiments import get_experiment
+
+    def batches(cfg, n, half=False):
+        data = get_dataset(cfg)
+        out = []
+        for i in range(n):
+            x, s = data.train.next_batch(cfg.batch_size)
+            x, s = torch.from_numpy(x).cuda(), torch.from_numpy(s.astype(np.uint8)).cuda()
+            out.append((x[: len(x) // 2], s[: len(s) // 2]) if half and i == n - 1 else (x, s))
+        return out
+
+    def schedule(cfg):
+        lr = cfg.lr_schedule[min(cfg.lr_schedule)]
+        return cfg.replace(lr_schedule={0: lr, GRAPH_STEPS: lr / 10})
+
+    n = GRAPH_STEPS + 2
+    want = [(1, i + 1) for i in range(GRAPH_STEPS)] + [(2, n - 1), (3, n)]
+    out = {}
+    for name in GRAPH_FAMILIES:
+        cfg = schedule(get_experiment(name).replace(compute_dtype="float32"))
+        out[name] = _graph_vs_eager(f"{name} f32", cfg, batches(cfg, n, half=True),
+                                    KERNEL_STEP_LOSS_TOL, want, KERNEL_STEP_LOSS_TOL)
+    cfg = schedule(get_experiment(EXPERIMENT))
+    out[EXPERIMENT + " bf16"] = _graph_vs_eager(f"{EXPERIMENT} {cfg.compute_dtype}", cfg,
+                                                batches(cfg, n, half=True), BF16_STEP_LOSS_TOL,
+                                                want)
+    variants = [("norm", n) for n in ("batch_bf16", *NORM_VARIANTS)] + [("optimizer", "momentum")]
+    for key, value in variants:
+        cfg = get_experiment(EXPERIMENT).replace(**{key: value})
+        out[value] = _graph_vs_eager(f"{EXPERIMENT} {key}={value}", cfg,
+                                     batches(cfg, GRAPH_NORM_STEPS), BF16_STEP_LOSS_TOL,
+                                     [(1, i + 1) for i in range(GRAPH_NORM_STEPS)])
+    cfg = get_experiment(EXPERIMENT)
+    t = _graph_timing(cfg, batches(cfg, 1)[0])
+    say(f"graph phase, {EXPERIMENT} {cfg.compute_dtype} batch {cfg.batch_size}: ms a step of "
+        f"{GRAPH_TIMED_STEPS} queued steps, in turns graph / eager: graph {t['graph']}, eager "
+        f"{t['eager']}")
+    out["timing"] = t
+    return out
+
+
 def phase_profiler():
     """PROFILE_ITERS steps through the train CLI with PHISEG_PROFILE_DIR and
     PHISEG_PROFILE_STEPS: one trace of the window, read back: nonzero device
@@ -3726,6 +3938,7 @@ def main() -> None:
     phase_predictions({EXPERIMENT: val["log_dir"], **{n: f["log_dir"] for n, f in fam.items()}})
     norms = phase_norms()
     elastic = phase_elastic()
+    phase_train_graph()
     prof = phase_profiler()
     phase_eval_mesh(val["log_dir"])
     phase_figures({EXPERIMENT: val["log_dir"],

@@ -17,9 +17,11 @@ running) name the phases: `train_step` (unit: the state's step) with
 `train_step.augment`, `.forward` (one-hot, forward, objective; the
 HPU-Net's `.geco` inside it), `.backward` (zero_grad, backward),
 `.grad_allreduce` (under a mesh) and `.optimizer` (the rate and the
-update); the sampler's `sample.encode`, `sample.decode` (noise, the S x B
-decode, the level sum; `sample.decode.tile` around the cache's tiling
-inside it, and the HPU-Net's `.latents` and `.stitch`), `sample.softmax` and
+update), which a step made of a CUDA graph runs only at its capture, inside
+`train_step.capture`; its other calls are `train_step.replay`. The
+sampler's `sample.encode`, `sample.decode` (noise, the S x B decode, the
+level sum; `sample.decode.tile` around the cache's tiling inside it, and
+the HPU-Net's `.latents` and `.stitch`), `sample.softmax` and
 `sample.assemble` (under a mesh), with CUDA events on x's device and the
 sampler's call count as their unit.
 """
@@ -34,6 +36,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from phiseg_tpu_torch.engine import step_graph
 from phiseg_tpu_torch.engine.config import ExperimentConfig
 from phiseg_tpu_torch.engine.objective import geco_objective, phiseg_objective
 from phiseg_tpu_torch.models.hpunet import init_hpunet_weights_
@@ -119,7 +122,7 @@ AugmentFn = Callable[..., tuple]
 
 
 def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = None,
-                    use_fused_ce: Optional[bool] = None, mesh=None):
+                    use_fused_ce: Optional[bool] = None, mesh=None, capture: bool = True):
     """Build step(state, x, s, generator=None, eps=None) -> loss dict.
 
     x: (B,H,W,Cin) float; s: (B,H,W) integer labels, both on the model's
@@ -127,6 +130,12 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     `eps` injects the noise instead (per level, NHWC like z). The returned
     losses are detached device tensors. use_fused_ce=None uses the fused
     residual-CE kernels when x is on a CUDA device.
+
+    On the card, with a generator and without `eps` or a mesh, the step is
+    one CUDA graph (engine/step_graph.py): captured at the first call and
+    again when the batch's shapes, the state, the generator or the rate
+    change, replayed at every call. Elsewhere, or with capture=False (a
+    test's eager twin), it runs eagerly.
 
     The HPU-Net ("hpu_net") trains on objective.geco_objective instead,
     whose top-k draws one uniform a pixel from `generator` after the
@@ -143,39 +152,53 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     sync_bn_model = None  # the model whose batch norms this step made sync-BN
     geco = cfg.model_family == "hpu_net"
 
+    def one_step(state: TrainState, x: torch.Tensor, s: torch.Tensor,
+                 generator: Optional[torch.Generator], eps: Optional[Sequence[torch.Tensor]],
+                 lr: float) -> Dict[str, torch.Tensor]:
+        nonlocal sync_bn_model
+        fused = fused_ce_rule(use_fused_ce, x)
+        if augment_fn is not None:
+            with span("train_step.augment"):
+                x, s = augment_fn(x, s, generator)
+        model, opt = state.model, state.optimizer
+        with span("train_step.forward"):
+            s_oh = one_hot(s, cfg.nlabels)
+            model.train()
+            if mesh is not None and model is not sync_bn_model:
+                set_batch_norm_mesh(model, mesh)
+                sync_bn_model = model
+            outputs = model(x, s_oh, eps=eps, generator=generator)
+            loss, loss_dict = _objective(cfg, outputs, s_oh, model, generator, fused, mesh)
+        with span("train_step.backward"):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        if mesh is not None:
+            with span("train_step.grad_allreduce"):
+                mesh.average_gradients(list(model.parameters()))
+        with span("train_step.optimizer"):
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+            if geco:
+                model.geco.clamp_()
+        return loss_dict
+
+    graph = step_graph.StepGraph(one_step) if capture else None
+
     def step(state: TrainState, x: torch.Tensor, s: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              eps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        nonlocal sync_bn_model
         with span("train_step", state.step):
-            fused = fused_ce_rule(use_fused_ce, x)
-            if augment_fn is not None:
-                with span("train_step.augment"):
-                    x, s = augment_fn(x, s, generator)
-            model, opt = state.model, state.optimizer
-            with span("train_step.forward"):
-                s_oh = one_hot(s, cfg.nlabels)
-                model.train()
-                if mesh is not None and model is not sync_bn_model:
-                    set_batch_norm_mesh(model, mesh)
-                    sync_bn_model = model
-                outputs = model(x, s_oh, eps=eps, generator=generator)
-                loss, loss_dict = _objective(cfg, outputs, s_oh, model, generator, fused, mesh)
-            with span("train_step.backward"):
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-            if mesh is not None:
-                with span("train_step.grad_allreduce"):
-                    mesh.average_gradients(list(model.parameters()))
-            with span("train_step.optimizer"):
-                lr = lr_fn(state.step)
-                for group in opt.param_groups:
-                    group["lr"] = lr
-                opt.step()
-                if geco:
-                    model.geco.clamp_()
+            lr = lr_fn(state.step)
+            if graph is not None and step_graph.capturable(x, generator, eps, mesh,
+                                                           state.optimizer):
+                losses = graph(state, x, s, generator, lr)
+            else:
+                step_graph.COUNTS["eager"] += 1
+                losses = {k: v.detach() for k, v in one_step(state, x, s, generator, eps,
+                                                             lr).items()}
             state.step += 1
-            return {k: v.detach() for k, v in loss_dict.items()}
+            return losses
 
     step.mesh = mesh
     return step
