@@ -39,9 +39,8 @@ import torch
 from phiseg_tpu_torch.engine import step_graph
 from phiseg_tpu_torch.engine.config import ExperimentConfig
 from phiseg_tpu_torch.engine.objective import geco_objective, phiseg_objective
-from phiseg_tpu_torch.models.hpunet import init_hpunet_weights_
-from phiseg_tpu_torch.models.segvae import SegVAE, aggregate_levels
-from phiseg_tpu_torch.nn.layers import init_weights_, set_batch_norm_mesh
+from phiseg_tpu_torch.models import HPUNet, SegVAE, aggregate_levels, model_class
+from phiseg_tpu_torch.nn.layers import set_batch_norm_mesh
 from phiseg_tpu_torch.nn.losses import one_hot
 from phiseg_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 from phiseg_tpu_torch.utils.profiling import span
@@ -49,13 +48,14 @@ from phiseg_tpu_torch.utils.profiling import span
 
 def build_model(cfg: ExperimentConfig, device: DeviceLike = "cuda",
                 seed: Optional[int] = None) -> SegVAE:
-    """The config's SegVAE on `device`: the card unless the caller asks for
-    the CPU (without a card, "cuda" raises). With `seed`, its weights are
-    drawn on the CPU from a generator with that seed (so every device gets
-    the same init) before the move: Flax's init, or the HPU-Net's published
-    one (models/hpunet.py `init_hpunet_weights_`)."""
+    """The config's SegVAE (its family's class, `models.model_class`) on
+    `device`: the card unless the caller asks for the CPU (without a card,
+    "cuda" raises). With `seed`, its weights are drawn on the CPU from a
+    generator with that seed (so every device gets the same init) before the
+    move, by the class's `init_weights_`: Flax's init, or the HPU-Net's
+    published one."""
     device = resolve_device(device)
-    model = SegVAE(
+    model = model_class(cfg.model_family)(
         model_family=cfg.model_family,
         zdim0=cfg.zdim0,
         n0=cfg.n0,
@@ -68,8 +68,7 @@ def build_model(cfg: ExperimentConfig, device: DeviceLike = "cuda",
         image_channels=cfg.image_size[2],
     )
     if seed is not None:
-        init = init_hpunet_weights_ if cfg.model_family == "hpu_net" else init_weights_
-        init(model, torch.Generator().manual_seed(seed))
+        model.init_weights_(torch.Generator().manual_seed(seed))
     return model.to(device)
 
 
@@ -137,7 +136,7 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     change, replayed at every call. Elsewhere, or with capture=False (a
     test's eager twin), it runs eagerly.
 
-    The HPU-Net ("hpu_net") trains on objective.geco_objective instead,
+    The HPU-Net (models.HPUNet) trains on objective.geco_objective instead,
     whose top-k draws one uniform a pixel from `generator` after the
     posterior's normals (augmentation, then the posterior's levels from the
     coarsest, then the uniforms), and clamps its multiplier at >= 0 after
@@ -150,7 +149,7 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     """
     lr_fn = lr_schedule_from_dict(cfg.lr_schedule)
     sync_bn_model = None  # the model whose batch norms this step made sync-BN
-    geco = cfg.model_family == "hpu_net"
+    geco = _trains_on_geco(cfg)
 
     def one_step(state: TrainState, x: torch.Tensor, s: torch.Tensor,
                  generator: Optional[torch.Generator], eps: Optional[Sequence[torch.Tensor]],
@@ -168,7 +167,8 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
                 set_batch_norm_mesh(model, mesh)
                 sync_bn_model = model
             outputs = model(x, s_oh, eps=eps, generator=generator)
-            loss, loss_dict = _objective(cfg, outputs, s_oh, model, generator, fused, mesh)
+            loss, loss_dict = _objective(cfg, geco, outputs, s_oh, model, generator, fused,
+                                         mesh)
         with span("train_step.backward"):
             opt.zero_grad(set_to_none=True)
             loss.backward()
@@ -204,10 +204,15 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     return step
 
 
-def _objective(cfg: ExperimentConfig, outputs, s_oh: torch.Tensor, model: SegVAE,
+def _trains_on_geco(cfg: ExperimentConfig) -> bool:
+    """Whether the config's family trains on GECO: the HPU-Net's class."""
+    return issubclass(model_class(cfg.model_family), HPUNet)
+
+
+def _objective(cfg: ExperimentConfig, geco: bool, outputs, s_oh: torch.Tensor, model: SegVAE,
                generator: Optional[torch.Generator], use_fused_ce: bool, mesh=None):
     """The family's objective: GECO for the HPU-Net, PHiSeg's for the others."""
-    if cfg.model_family == "hpu_net":
+    if geco:
         return geco_objective(outputs, s_oh, model, generator, mesh)
     return phiseg_objective(outputs, s_oh, cfg, model=model, use_fused_ce=use_fused_ce, mesh=mesh)
 
@@ -226,13 +231,14 @@ def make_eval_loss_fn(model: SegVAE, cfg: ExperimentConfig):
     tensors. The CE goes through K1 by `fused_ce_rule` of
     `cfg.use_fused_loss_kernel`; the HPU-Net's GECO loss reads its moving
     average without advancing it."""
+    geco = _trains_on_geco(cfg)
 
     def eval_loss(x: torch.Tensor, s: torch.Tensor, generator: Optional[torch.Generator] = None,
                   eps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         s_oh = one_hot(s, cfg.nlabels)
         with torch.no_grad(), _eval_mode(model):
             outputs = model(x, s_oh, eps=eps, generator=generator)
-            _, loss_dict = _objective(cfg, outputs, s_oh, model, generator,
+            _, loss_dict = _objective(cfg, geco, outputs, s_oh, model, generator,
                                       fused_ce_rule(cfg.use_fused_loss_kernel, x))
         return loss_dict
 

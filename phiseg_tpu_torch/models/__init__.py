@@ -1,5 +1,5 @@
-"""The PHiSeg model: components, family modules and SegVAE (phiseg_tpu.models'
-names)."""
+"""The PHiSeg model: components, family modules, SegVAE (phiseg_tpu.models'
+names) and the HPU-Net's subclass of it, HPUNet."""
 
 from phiseg_tpu_torch.models.components import (
     EncoderTower,
@@ -8,8 +8,17 @@ from phiseg_tpu_torch.models.components import (
     UNetCore,
     default_channels,
 )
+from phiseg_tpu_torch.models.hpunet import HPUNet
 from phiseg_tpu_torch.models.segvae import ModelOutputs, SegVAE, aggregate_levels
 
+
+def model_class(model_family: str) -> type:
+    """The class that builds a model family: HPUNet for "hpu_net", else
+    SegVAE, whose constructor refuses a name it does not know."""
+    return HPUNet if model_family == "hpu_net" else SegVAE
+
+
+# phiseg_tpu.models' names; HPUNet and model_class are the port's own
 __all__ = [
     "EncoderTower",
     "GaussianHead",

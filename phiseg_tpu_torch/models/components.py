@@ -28,6 +28,15 @@ def default_channels(n0: int, resolution_levels: int) -> Tuple[int, ...]:
     return tuple(n0 * m for m in mults[:resolution_levels])
 
 
+def latent_map_shapes(batch: int, image_size: Tuple[int, int], skipped: int, levels: int,
+                      zdim: int) -> Tuple[Tuple[int, ...], ...]:
+    """NHWC shapes of `levels` latent maps, finest first: the image halved
+    (SAME pooling rounds up) `skipped` times, then once more a level."""
+    h, w = image_size
+    return tuple((batch, -(-h // 2 ** k), -(-w // 2 ** k), zdim)
+                 for k in range(skipped, skipped + levels))
+
+
 class EncoderTower(nn.Module):
     """R resolution levels of 3 conv blocks each, 2x2 avg-pool between levels
     (ref posteriors.py:84-95). Returns the per-level features, finest first."""

@@ -22,6 +22,7 @@ from phiseg_tpu_torch.models.components import (
     LatentHierarchy,
     UNetCore,
     default_channels,
+    latent_map_shapes,
 )
 from phiseg_tpu_torch.nn.layers import (
     ConvBlock,
@@ -61,13 +62,23 @@ class PhiSegPrior(nn.Module):
                  resolution_levels: int, norm: str = "batch",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.zdim0 = dtype, zdim0
         self.tower = EncoderTower(image_channels, n0, resolution_levels, norm, dtype)
         self.hierarchy = LatentHierarchy(zdim0, n0, latent_levels, resolution_levels, norm, dtype)
 
-    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """The x-only part: the encoder features, finest first (ref families.py:107-108)."""
-        return self.tower(x.to(self.dtype))
+    def latent_shapes(self, batch: int, image_size: Tuple[int, int]):
+        """z's NHWC shape at each level, finest first: the image halved
+        R - L + i times at level i."""
+        h = self.hierarchy
+        return latent_map_shapes(batch, image_size, h.lvl_diff, h.latent_levels, self.zdim0)
+
+    def encode(self, x: torch.Tensor) -> Tuple[Optional[torch.Tensor], ...]:
+        """The x-only part: the encoder features, finest first (ref
+        families.py:107-108), None at the R - L finest levels, which the
+        heads do not read: so the sampler neither keeps nor tiles them."""
+        feats = self.tower(x.to(self.dtype))
+        skipped = self.hierarchy.lvl_diff
+        return (None,) * skipped + tuple(feats[skipped:])
 
     def heads(self, pre_z: Sequence[torch.Tensor],
               z_teacher: Optional[Sequence[torch.Tensor]] = None,
@@ -213,9 +224,14 @@ class ProbUNetPrior(nn.Module):
     def __init__(self, image_channels: int, zdim0: int, n0: int, resolution_levels: int,
                  norm: str = "batch", dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.zdim0 = dtype, zdim0
         self.encoder = GlobalGaussianEncoder(image_channels, zdim0, n0, resolution_levels,
                                              norm, dtype)
+
+    def latent_shapes(self, batch: int, image_size: Tuple[int, int]):
+        """z's one shape: (batch, zdim0), whatever the image."""
+        del image_size
+        return ((batch, self.zdim0),)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(mu, sigma) of x, each (B, zdim)."""

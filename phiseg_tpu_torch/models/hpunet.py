@@ -23,7 +23,10 @@ heads' (mu, log sigma), the latents and the logits are f32.
                     concatenates the encoder's features of that scale and
                     runs its blocks;
   StitchingDecoder  the levels the core's decoder leaves out, on the
-                    prior's encoder features, and a 1x1 conv to the logits.
+                    prior's encoder features, and a 1x1 conv to the logits;
+  HPUNet            the family as a SegVAE: a posterior core on concat(x,
+                    one-hot s), a prior core on x, the stitching decoder as
+                    its likelihood and GECO's state (`GecoState`).
 
 Widths: c = n0 * (1, 2, 4, 8, 8, ...) over R levels, bottlenecks d = c / 2
 (the published n0 = 24, R = 8, L = 4, zdim0 = 1, ExperimentConfig fields as
@@ -45,7 +48,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from phiseg_tpu_torch.nn.layers import ConvBlock, at_least_f32, avg_pool_2x2, upsample_nearest
+from phiseg_tpu_torch.models.components import latent_map_shapes
+from phiseg_tpu_torch.models.segvae import (
+    ModelOutputs,
+    SegVAE,
+    ZTuple,
+    check_image_size,
+    draw_nhwc,
+    latent_nchw,
+    latents_nchw,
+)
+from phiseg_tpu_torch.nn.layers import (
+    ConvBlock,
+    at_least_f32,
+    avg_pool_2x2,
+    nchw,
+    nhwc,
+    upsample_nearest,
+)
+from phiseg_tpu_torch.utils.profiling import span
 
 # HierarchicalProbUNet's defaults (model.py `loss_kwargs`, `convs_per_block`,
 # `blocks_per_level`, `base_channels`)
@@ -126,6 +147,11 @@ class HPUNetCore(nn.Module):
             self.add_module(f"dec{i}_head", _conv(f, 2 * zdim0, 1, None, dtype))
             _blocks(self, f"dec{i}", zdim0 + f + ch[R - 2 - i], ch[R - 2 - i], dtype)
             f = ch[R - 2 - i]
+
+    def latent_shapes(self, batch: int, image_size: Tuple[int, int]):
+        """z's NHWC shape at each latent level, finest first: the image
+        halved R - L + i times at level i."""
+        return latent_map_shapes(batch, image_size, self.R - self.L, self.L, self.zdim0)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """The encoder's output at every level, finest first."""
@@ -260,3 +286,83 @@ def init_hpunet_weights_(module: nn.Module, generator: torch.Generator) -> None:
                 m.lagmul.fill_(LAGMUL_INIT)
                 m.ma_hidden.zero_()
                 m.ma_count.zero_()
+
+
+class HPUNet(SegVAE):
+    """The family "hpu_net" behind SegVAE's interface. Its z are NHWC maps at
+    its L coarsest scales; its one level of logits comes from a decoder that
+    runs to full resolution for every draw, so its sampling cache is the
+    prior's encoder features at every level, and the sampler tiles them all
+    (SegVAE.repeat_cache)."""
+
+    def __init__(self, model_family: str = "hpu_net", zdim0: int = 2, n0: int = 32,
+                 latent_levels: int = 5, resolution_levels: int = 7, nlabels: int = 2,
+                 image_size: Tuple[int, int] = (128, 128), norm: str = "none",
+                 dtype: torch.dtype = torch.float32, image_channels: int = 1):
+        nn.Module.__init__(self)  # SegVAE's constructor builds the JAX package's families
+        check_image_size(image_size, resolution_levels)
+        if norm != "none":
+            raise ValueError(f"the HPU-Net has no normalisation: norm must be 'none', not {norm!r}")
+        if any(side % 2 ** (resolution_levels - 1) for side in image_size):
+            raise ValueError(f"the HPU-Net's nearest x2 upsampling needs image sides that "
+                             f"2^(R-1) = {2 ** (resolution_levels - 1)} divides, not "
+                             f"{tuple(image_size)}")
+        self.model_family = model_family
+        self.image_size = tuple(image_size)
+        self.dtype = dtype
+        lat = dict(zdim0=zdim0, n0=n0, latent_levels=latent_levels,
+                   resolution_levels=resolution_levels, dtype=dtype)
+        self.posterior = HPUNetCore(image_channels + nlabels, **lat)
+        self.prior = HPUNetCore(image_channels, **lat)
+        self.likelihood = StitchingDecoder(nlabels, n0, latent_levels, resolution_levels, dtype)
+        self.geco = GecoState()
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """The published initialisers, from `generator` (`init_hpunet_weights_`)."""
+        init_hpunet_weights_(self, generator)
+
+    def forward(self, x: torch.Tensor, s_oh: torch.Tensor,
+                eps: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> ModelOutputs:
+        """Training forward: the posterior core on concat(x, one-hot s) draws
+        z; the prior core on x is teacher-forced with it and the stitching
+        decoder reads the prior's encoder features (model.py `reconstruct`,
+        `kl`)."""
+        x_c = nchw(x)
+        z, q_mu, q_sigma = self.posterior(torch.cat([x_c, nchw(s_oh)], dim=1),
+                                          latents_nchw(eps), generator)
+        enc = self.prior.encode(x_c)
+        f, _, p_mu, p_sigma = self.prior.decode(enc, z_inject=z)
+        logits = self.likelihood(enc, f)
+        z, q_mu, q_sigma, p_mu, p_sigma = draw_nhwc((z, q_mu, q_sigma, p_mu, p_sigma))
+        return ModelOutputs(s_out_list=(nhwc(logits),), z=z, q_mu=q_mu, q_sigma=q_sigma,
+                            p_mu=p_mu, p_sigma=p_sigma)
+
+    def sample_cache(self, x: torch.Tensor) -> ZTuple:
+        """The prior's encoder features at every level of x (B,H,W,Cin)."""
+        return self.prior.encode(nchw(x))
+
+    def decode_sample(self, cache, eps: Optional[Sequence[torch.Tensor]] = None,
+                      generator: Optional[torch.Generator] = None) -> ZTuple:
+        """One prior draw per cache row -> the one level of f32 logits, NHWC,
+        in two spans with CUDA events on the cache's device:
+        `sample.decode.latents` (the prior core's latent levels) and
+        `sample.decode.stitch` (the stitching decoder and its logits)."""
+        with span("sample.decode.latents", device=cache[0].device):
+            f, _, _, _ = self.prior.decode(cache, latents_nchw(eps), generator)
+        with span("sample.decode.stitch", device=cache[0].device):
+            return (nhwc(self.likelihood(cache, f)),)
+
+    def posterior_draw(self, x: torch.Tensor, s_oh: torch.Tensor,
+                       eps: Optional[Sequence[torch.Tensor]] = None,
+                       generator: Optional[torch.Generator] = None):
+        """Posterior (z, mu, sigma): the core reads concat(x, s)."""
+        return draw_nhwc(self.posterior(torch.cat([nchw(x), nchw(s_oh)], dim=1),
+                                        latents_nchw(eps), generator))
+
+    def decode_z(self, z: Sequence[torch.Tensor], x: torch.Tensor) -> ZTuple:
+        """Decode given latents with x (B,H,W,Cin), whose prior encoder
+        features the decoder reads, NHWC."""
+        enc = self.prior.encode(nchw(x))
+        f, _, _, _ = self.prior.decode(enc, z_inject=[latent_nchw(t) for t in z])
+        return (nhwc(self.likelihood(enc, f)),)

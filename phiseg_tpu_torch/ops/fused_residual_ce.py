@@ -29,31 +29,23 @@ cannot take: K1's takes 4 pixels a thread with 16-byte loads
 (`vector_kernel_fits` chooses), K2's 2 pixels a thread with accesses of up to
 16 bytes whose width is fixed at compile time (`backward_vector_fits`
 chooses). The library is built with nvcc for sm_90a into `_build/` at the
-first launch and bound with ctypes, so importing this module needs neither
-nvcc nor a card.
+first launch (ops/cuda_build.py) and bound with ctypes, so importing this
+module needs neither nvcc nor a card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
 from phiseg_tpu_torch.nn.losses import multinoulli_loss_with_logits
+from phiseg_tpu_torch.ops import cuda_build
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_residual_ce.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_residual_ce.cu"
 MAX_LEVELS = 8   # kMaxLevels in the source
 MAX_CLASSES = 4  # the NC instantiations in the source
 VEC = 4          # kVec in the source: pixels a thread of K1's vector kernel
@@ -104,41 +96,6 @@ def residual_ce_plain(s_out_list: Sequence[torch.Tensor], s_oh: torch.Tensor) ->
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
-
-
-def build(source: Path = SOURCE, stem: str = "fused_residual_ce",
-          info: Optional[Dict[str, object]] = None) -> Path:
-    """Compile a csrc/ source (by default K1/K2's) into the shared library
-    `_build/lib<stem>_<hash>.so` (once per source and flags; the hash is of
-    both) and return its path. Fills `info` (default BUILD_INFO) with the
-    seconds taken and ptxas's report."""
-    info = BUILD_INFO if info is None else info
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{stem}_{digest}.so"
-    if out.exists():
-        info.update(path=str(out), seconds=0.0, cached=True)
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    info.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
-                ptxas=proc.stderr.strip())
-    return out
-
-
 def bind(path: Union[str, Path]) -> ctypes.CDLL:
     """Load a build of the kernel library and declare its C entry points."""
     lib = ctypes.CDLL(str(path))
@@ -158,7 +115,7 @@ def _library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = bind(build())
+            lib = bind(cuda_build.build(SOURCE, "fused_residual_ce", BUILD_INFO))
             if (lib.frce_max_levels(), lib.frce_max_classes(), lib.frce_vec(),
                     lib.frce_bwd_px()) != (MAX_LEVELS, MAX_CLASSES, VEC, BWD_PX):
                 raise RuntimeError("csrc/fused_residual_ce.cu constants disagree with the wrapper")

@@ -22,8 +22,8 @@ output's in F.interpolate (`memory_format`). `upsample_bilinear2x` launches
 them for CUDA tensors and takes the plain versions (`upsample2x_plain`,
 `upsample2x_gather_plain`) for CPU tensors only: a CUDA tensor gets the
 kernel or an error, never a fallback. The library is built with nvcc for
-sm_90a into `_build/` at the first launch (`fused_residual_ce.build`) and
-bound with ctypes, so importing this module needs neither nvcc nor a card.
+sm_90a into `_build/` at the first launch (ops/cuda_build.py) and bound
+with ctypes, so importing this module needs neither nvcc nor a card.
 """
 
 from __future__ import annotations
@@ -35,6 +35,8 @@ from typing import Dict, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from phiseg_tpu_torch.ops import cuda_build
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "upsample_bilinear2x.cu"
 DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}  # the source's dtype codes
@@ -153,12 +155,9 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    # imported here: fused_residual_ce imports nn, whose layers import this module
-    from phiseg_tpu_torch.ops import fused_residual_ce as frce
-
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(frce.build(SOURCE, "upsample_bilinear2x", BUILD_INFO)))
+            lib = ctypes.CDLL(str(cuda_build.build(SOURCE, "upsample_bilinear2x", BUILD_INFO)))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             for name in ("bilinear2x_forward", "bilinear2x_backward"):
                 fn = getattr(lib, name)

@@ -43,9 +43,10 @@ SHAPE = (5, 12, 128, 2)  # L, B, H=W, C
 
 def _build_all(parent_source):
     """nvcc of every build at once; returns {name: (library path, ptxas text)}."""
+    from phiseg_tpu_torch.ops import cuda_build
     from phiseg_tpu_torch.ops import fused_residual_ce as frce
 
-    frce.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     text = frce.SOURCE.read_text()
     if PX_LINE not in text:
         cs.fail(f"{frce.SOURCE} no longer holds {PX_LINE!r}")
@@ -55,10 +56,10 @@ def _build_all(parent_source):
             sources["parent"] = f.read()
     procs = {}
     for name, src in sources.items():
-        stem = frce.BUILD_DIR / f"k2_variant_{name}_{os.getpid()}"
+        stem = cuda_build.BUILD_DIR / f"k2_variant_{name}_{os.getpid()}"
         stem.with_suffix(".cu").write_text(src)
         procs[name] = (stem, subprocess.Popen(
-            [frce._nvcc(), *frce.NVCC_FLAGS, "-o", str(stem.with_suffix(".so")),
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(stem.with_suffix(".so")),
              str(stem.with_suffix(".cu"))],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     built = {}

@@ -268,16 +268,49 @@ def test_make_validation_fn_matches_jax(fam):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=what, **EVAL_TOL)
 
 
+def _cache_as_each_decode_reads_it(model, x, n):
+    """The sampling cache of x for n draws an image, tiled as each family's
+    decode reads it: PHiSeg's prior encoder levels from R-L on (None below)
+    and its likelihood's empty cache; the Probabilistic U-Net's prior
+    (mu, sigma) and its likelihood's U-Net features; every level of the
+    HPU-Net prior's encoder features."""
+    x_c = x.permute(0, 3, 1, 2)
+    if model.model_family == "phiseg":
+        feats = model.prior.tower(x_c.to(model.dtype))
+        d = model.likelihood.lvl_diff
+        return tuple(None if i < d else t.repeat(n, 1, 1, 1) for i, t in enumerate(feats)), ()
+    if model.model_family == "prob_unet":
+        return (tuple(t.repeat(n, 1) for t in model.prior.encode(x_c)),
+                model.likelihood.features(x_c).repeat(n, 1, 1, 1))
+    return tuple(t.repeat(n, 1, 1, 1) for t in model.prior.encode(x_c))
+
+
+def _assert_same_cache(got, want, where="cache"):
+    if want is None or isinstance(want, torch.Tensor):
+        assert (got is None) if want is None else torch.equal(got, want), where
+        return
+    assert isinstance(got, tuple) and len(got) == len(want), where
+    for i, (g, w) in enumerate(zip(got, want)):
+        _assert_same_cache(g, w, f"{where}[{i}]")
+
+
 @pytest.mark.parametrize("name", sorted(list_experiments()))
 def test_every_registry_entry_builds(name):
     """No entry of the registry raises; each builds the JAX entry's model
-    family with its latent levels."""
+    family with its latent levels, and its sampler tiles the cache its
+    decode reads (the deterministic U-Net's sampler does not tile)."""
     from phiseg_tpu_torch.engine.train import build_model
 
     cfg = get_experiment(name)
     model = build_model(cfg.replace(n0=2), device="cpu")
     assert model.model_family == cfg.model_family
     assert len(model.latent_shapes(3)) == (cfg.effective_latent_levels if model.has_latents else 0)
+    if model.has_latents:
+        x = torch.randn(1, *cfg.image_size, generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model.eval()
+            _assert_same_cache(model.repeat_cache(model.sample_cache(x), 2),
+                               _cache_as_each_decode_reads_it(model, x, 2))
 
 
 # -- the CLIs on the CPU at a tiny size --------------------------------------

@@ -29,8 +29,7 @@ from phiseg_tpu_torch.engine.train import (
     make_train_step,
 )
 from phiseg_tpu_torch.experiments import get_experiment
-from phiseg_tpu_torch.models.hpunet import TOP_K_SHARE
-from phiseg_tpu_torch.models.segvae import SegVAE
+from phiseg_tpu_torch.models.hpunet import TOP_K_SHARE, HPUNet
 from phiseg_tpu_torch.nn.losses import one_hot
 from reference_torch import hpunet as R
 
@@ -204,8 +203,8 @@ def test_the_published_widths_are_the_benchmark_reference_s():
 
     cfg = _as_dict(get_experiment("hpunet"))
     with torch.device("meta"):
-        model = SegVAE(model_family="hpu_net", zdim0=1, n0=24, latent_levels=4,
-                       resolution_levels=8, nlabels=2, norm="none")
+        model = HPUNet(zdim0=1, n0=24, latent_levels=4, resolution_levels=8, nlabels=2,
+                       norm="none")
     have = [(k, tuple(v.shape)) for k, v in model.state_dict().items()]
     assert have == [(n, shape) for n, shape, _ in PR.param_spec(cfg)]
     assert have == [(n, shape) for n, shape, _ in R.param_spec(cfg)]
@@ -221,6 +220,7 @@ def test_the_published_widths_are_the_benchmark_reference_s():
 
 def test_the_published_initialisers(cfg):
     model = build_model(cfg, "cpu", seed=3)
+    assert type(model) is HPUNet
     w = model.prior.enc1_block0.conv0.conv.weight.detach()
     w = w.reshape(w.shape[0], -1)  # (4, 36): orthonormal rows
     torch.testing.assert_close(w @ w.T, torch.eye(4), atol=1e-5, rtol=0)
@@ -231,11 +231,9 @@ def test_the_published_initialisers(cfg):
 
 def test_the_family_refuses_a_norm_and_an_odd_size():
     with pytest.raises(ValueError, match="no normalisation"):
-        SegVAE(model_family="hpu_net", n0=4, latent_levels=2, resolution_levels=5,
-               image_size=(32, 32), norm="batch")
+        HPUNet(n0=4, latent_levels=2, resolution_levels=5, image_size=(32, 32), norm="batch")
     with pytest.raises(ValueError, match="divides"):
-        SegVAE(model_family="hpu_net", n0=4, latent_levels=2, resolution_levels=5,
-               image_size=(40, 36), norm="none")
+        HPUNet(n0=4, latent_levels=2, resolution_levels=5, image_size=(40, 36), norm="none")
 
 
 def test_trainer_validation_and_test_quantitative_through_the_clis(cfg, tmp_path):
