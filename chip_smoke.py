@@ -42,6 +42,16 @@ Phases, each fatal on failure:
      upsample_bilinear2d_backward), with the sums a decode, a step and a
      U-Net decode; last, a profiled B=8 sampler call runs 18 of the
      kernel's launches and none of PyTorch's resize;
+  2c. the eval-mode BN + ReLU epilogue (ops/bn_act_eval.py): build its
+     library and print ptxas's registers and spills; hold the kernel against
+     the plain chain (at least BA_MIN_BITWISE of the elements bitwise, the
+     rest within an ulp of the output dtype) at the eval's shapes in bf16 and
+     f32, NCHW and channels_last, with and without ReLU, misaligned and
+     strided; record the BN'd blocks' calls of a 100-sample PHiSeg sampler
+     call at B=8 and B=1 and a ProbUNet one at B=8 (one launch a call) and a
+     train step (none); time L2-cold the eval's largest call and a
+     train-sized eval call (12 x 32 x 128x128) beside their bytes bound and
+     the plain chain, and the sum of a B=8 decode's calls;
   3. train `phiseg_7_5_synth` at full width (R=7, L=5, n0=32, 128x128,
      batch 12, bf16, BN, Adam, on-device augmentation) through
      phiseg_tpu_torch.cli.train.main for NUM_STEPS steps; check every logged
@@ -386,8 +396,12 @@ def _ptxas_report(text: str):
                           r"(?:Li(\d)E)?", m.group(1))
             up = re.search(r"(bilinear2x_(?:fwd|bwd)_(?:planes|rows)_kernel)I(f|d|13__nv_bfloat16)"
                            r"Li(\d+)E", m.group(1))
+            ba = re.search(r"(bn_act_eval_kernel)I(f|13__nv_bfloat16)Li(\d+)ELb([01])E", m.group(1))
             name = m.group(1)
-            if up:  # the x2 upsample: kernel<type, columns or channels a thread>
+            if ba:  # the BN epilogue: kernel<type, elements a thread reads at once, layout>
+                name = (f"{ba.group(1)}<{'f32' if ba.group(2) == 'f' else 'bf16'}, {ba.group(3)}, "
+                        f"{'planes' if ba.group(4) == '1' else 'pixels'}>")
+            elif up:  # the x2 upsample: kernel<type, columns or channels a thread>
                 name = (f"{up.group(1)}<{ {'f': 'f32', 'd': 'f64'}.get(up.group(2), 'bf16')}, "
                         f"{up.group(3)}>")
             elif k:  # K2 has a layout parameter (Lb1E planes, Lb0E rows); K1 has none
@@ -1028,6 +1042,249 @@ def _up_timings(paths):
                     f"{tot['kernel']:.4f} ms, library {tot['library']:.4f} ms, plain "
                     f"{tot['plain']:.4f} ms, bound {tot['bound']:.4f} ms (sums of L2-cold calls)")
     return {"times": times, "per_unit": per_unit, "shapes": shapes, "largest": largest[1]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: the eval-mode BN + ReLU epilogue
+# ---------------------------------------------------------------------------
+
+BA_SOURCE = "phiseg_tpu_torch/csrc/bn_act_eval.cu"
+BA_MIN_BITWISE = 0.999  # share of elements equal to the plain chain's, bit for bit
+BA_TRAIN_SHAPE = (12, 32, 128, 128)  # the first level's BN'd convs of a batch-12 eval forward
+
+
+def _ba_plain(x, stats, relu):
+    """The plain chain on x; for channels_last x with PyTorch's own BN
+    kernel (cuDNN off): cuDNN's NHWC kernel, which the chain reaches there,
+    rounds its per-channel terms otherwise than its NCHW kernel and
+    PyTorch's, whose rounding the kernel has."""
+    import torch
+
+    from phiseg_tpu_torch.nn.layers import BN_EPS
+    from phiseg_tpu_torch.ops import bn_act_eval as ba
+
+    layout = ba.layout(x)
+    with torch.backends.cudnn.flags(enabled=layout is None or layout[0] == 1):
+        return ba.bn_act_eval_plain(x, *stats, BN_EPS, relu)
+
+
+def _ba_stats(c, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(c, device="cuda", generator=g) * 0.5,
+            torch.rand(c, device="cuda", generator=g) * 2.0 + 0.05,
+            torch.randn(c, device="cuda", generator=g),
+            torch.randn(c, device="cuda", generator=g) * 0.5)
+
+
+def _ba_check(name, x, relu, seed, problems):
+    """The kernel on x (in place) against the plain chain: the share of
+    elements bitwise equal and the largest difference in ulps of the output
+    dtype at the chain's output. Appends what is off to `problems`."""
+    import torch
+
+    from phiseg_tpu_torch.nn.layers import BN_EPS
+    from phiseg_tpu_torch.ops import bn_act_eval as ba
+
+    stats = _ba_stats(x.shape[1], seed)
+    layout = ba.layout(x)
+    width = ba.width(x if layout is not None else x.contiguous())
+    want = _ba_plain(x, stats, relu)
+    got = ba.bn_act_eval(x, *stats, BN_EPS, relu)
+    torch.cuda.synchronize()
+    equal, ulps, rows = 0, 0.0, max(1, 2 ** 26 // max(1, x[0].numel()))
+    for n0 in range(0, x.shape[0], rows):  # in chunks: the eval's largest call has 1.7 G elements
+        g, w = got[n0:n0 + rows], want[n0:n0 + rows]
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        equal += int(same.sum().item())
+        if not bool(same.all()):
+            ulps = max(ulps, _ulps(g[~same], w[~same]))
+    share = equal / x.numel()
+    kind = str(x.dtype).split(".")[-1]
+    form = {None: "strided", 1: "planes", 0: "pixels"}[None if layout is None else layout[0]]
+    say(f"bn_act_eval check {name}: {tuple(x.shape)} {kind} {form} relu={relu} width {width}: "
+        f"{share:.6f} bitwise, largest difference {ulps:g} ulp")
+    if share < BA_MIN_BITWISE or ulps > 1 or (layout is not None and got.data_ptr() != x.data_ptr()):
+        problems.append(f"{name} {tuple(x.shape)} {kind} {form} relu={relu}: {share:.6f} bitwise, "
+                        f"{ulps:g} ulp, in place {got.data_ptr() == x.data_ptr()}")
+    return share, ulps
+
+
+def _capture_bn_calls(fn):
+    """fn() with nn.layers' epilogue recorded: ((shape, dtype, memory
+    format, relu) of each call, the kernel's launches)."""
+    import torch
+
+    from phiseg_tpu_torch.nn import layers
+    from phiseg_tpu_torch.ops import bn_act_eval as ba
+
+    calls, real = [], layers.bn_act_eval
+
+    def record(x, *args, relu):
+        fmt = "nchw" if x.is_contiguous() else "channels_last"
+        calls.append((tuple(x.shape), x.dtype, fmt, relu))
+        return real(x, *args, relu=relu)
+
+    layers.bn_act_eval = record
+    ba.reset_launch_counts()
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        layers.bn_act_eval = real
+    return calls, ba.LAUNCHES["bn_act_eval"]
+
+
+def _main_path_bn_calls():
+    """The epilogue's calls on the main path at full width in bf16: a
+    100-sample PHiSeg sampler call at B=8 and B=1, a ProbUNet one at B=8,
+    and a PHiSeg train step at B=12; with the BN'd blocks each ran."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data.augment_device import make_augment_fn
+    from phiseg_tpu_torch.data.synthetic import make_synthetic_arrays
+    from phiseg_tpu_torch.engine.train import create_train_state, make_sample_fn, make_train_step
+    from phiseg_tpu_torch.experiments import get_experiment
+    from phiseg_tpu_torch.nn import layers
+
+    out = {}
+    for exp in (EXPERIMENT, "probunet_synth"):
+        cfg = get_experiment(exp).replace(compute_dtype="bfloat16")
+        state = create_train_state(cfg, "cuda")
+        blocks = [m for m in state.model.modules()
+                  if isinstance(m, layers._Normalised) and m.norm in ("batch", "batch_bf16")]
+        ran = []
+        hooks = [m.register_forward_hook(lambda *_: ran.append(1)) for m in blocks]
+        x_np, y_np = make_synthetic_arrays(cfg.batch_size, cfg.image_hw,
+                                           cfg.num_labels_per_subject, seed=0)
+        x = torch.from_numpy(x_np[..., None]).cuda()
+        s = torch.from_numpy(y_np[..., 0].astype(np.int64)).cuda()
+        g = torch.Generator(device="cuda").manual_seed(0)
+        sample = make_sample_fn(state.model, SAMPLES)
+        for b in ((8, 1) if exp == EXPERIMENT else (8,)):
+            sample(x[:b], g)
+            ran.clear()
+            calls, launches = _capture_bn_calls(lambda: sample(x[:b], g))
+            out[exp, "sample", b] = (calls, launches, len(ran))
+        if exp == EXPERIMENT:
+            step = make_train_step(cfg, make_augment_fn(cfg.augmentation_options, cfg.nlabels))
+            calls, launches = _capture_bn_calls(lambda: (step(state, x, s, g), step(state, x, s, g)))
+            out[exp, "train", 12] = (calls, launches, None)  # the capture's eager steps, a replay
+        for h in hooks:
+            h.remove()
+        del state, sample
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ba_time(shape, flushes):
+    """L2-cold device ms (a 128 MB write between calls, its time subtracted)
+    of the kernel in place and of the plain chain on one bf16 NCHW input
+    with ReLU, and the bytes the kernel must move (one read and one write)."""
+    import torch
+
+    from phiseg_tpu_torch.nn.layers import BN_EPS
+    from phiseg_tpu_torch.ops import bn_act_eval as ba
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+    stats = _ba_stats(shape[1], 12)
+    out = {"kernel": _cold_pair(lambda: ba.bn_act_eval(x, *stats, BN_EPS, True),
+                                flushes["write"])[0],
+           "plain": _cold_pair(lambda: ba.bn_act_eval_plain(x, *stats, BN_EPS, True),
+                               flushes["write"], iters=5)[0]}
+    out["bytes"] = 2 * x.numel() * x.element_size()
+    out["bound"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def phase_bn_act():
+    """Phase 2c: the eval-mode BN + ReLU epilogue against the plain chain,
+    its launches on the main path, and its times."""
+    import torch
+
+    from phiseg_tpu_torch.ops import bn_act_eval as ba
+
+    t0 = time.perf_counter()
+    ba._library()
+    rows = _ptxas_report(str(ba.BUILD_INFO.get("ptxas", "")))
+    say(f"bn_act_eval build: {time.perf_counter() - t0:.3f} s (nvcc "
+        f"{ba.BUILD_INFO.get('seconds', 0):.3f} s, {len(rows)} kernels)")
+    for name, regs, spill in rows:
+        say(f"  ptxas {name}: {regs} registers; {spill}")
+
+    def rand(shape, dtype, fmt=torch.contiguous_format, seed=0):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return (torch.randn(shape, device="cuda", generator=g) * 2).to(dtype).contiguous(
+            memory_format=fmt)
+
+    problems, worst = [], [1.0, 0.0]
+    cases = []
+    for shape in ((16, 32, 128, 128), (16, 64, 64, 64), (16, 192, 32, 32), (64, 192, 4, 4),
+                  (64, 192, 2, 2), (8, 40, 5, 7)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for fmt in (torch.contiguous_format, torch.channels_last):
+                for relu in (True, False):
+                    cases.append(("eval shape", lambda shape=shape, dtype=dtype, fmt=fmt:
+                                  rand(shape, dtype, fmt), relu))
+    base = rand((4, 16, 8, 8), torch.bfloat16)
+    cases += [("misaligned", lambda: torch.empty(base.numel() + 3, dtype=base.dtype,
+                                                 device="cuda")[3:].view(base.shape).copy_(base),
+               True),
+              ("strided", lambda: rand((4, 32, 8, 8), torch.bfloat16)[:, ::2], True),
+              ("ncdhw", lambda: rand((2, 16, 4, 8, 8), torch.float32), True),
+              ("channels_last_3d", lambda: rand((2, 16, 4, 8, 8), torch.bfloat16,
+                                                torch.channels_last_3d), True)]
+    for i, (name, make, relu) in enumerate(cases):
+        share, ulps = _ba_check(name, make(), relu, 300 + i, problems)
+        worst = [min(worst[0], share), max(worst[1], ulps)]
+
+    paths = _main_path_bn_calls()
+    for (exp, what, b), (calls, launches, blocks) in paths.items():
+        say(f"bn_act_eval launches, {exp} {what} B={b}: {launches} ({len(calls)} calls"
+            f"{'' if blocks is None else f', {blocks} BN block forwards'})")
+        if what == "train" and launches != 0:
+            problems.append(f"a train step launched the epilogue {launches} times")
+        if what == "sample" and not (launches == len(calls) == blocks > 0):
+            problems.append(f"{exp} sampler B={b}: {launches} launches, {len(calls)} calls, "
+                            f"{blocks} BN block forwards")
+    decode = paths[EXPERIMENT, "sample", 8][0]
+    largest = max(decode, key=lambda c: math.prod(c[0]))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    share, ulps = _ba_check("eval's largest", torch.randn(largest[0], device="cuda", generator=g)
+                            .to(largest[1]), largest[3], 400, problems)
+    worst = [min(worst[0], share), max(worst[1], ulps)]
+    torch.cuda.empty_cache()
+    if problems:
+        fail("bn_act_eval: " + "; ".join(problems))
+
+    scratch = torch.empty(32 * 2 ** 20, device="cuda")  # 128 MiB, over twice the 50 MB L2
+    flushes = {"write": lambda: scratch.fill_(1.0)}
+    times = {}
+    for what, shape in (("eval's largest", largest[0]), ("train-sized eval", BA_TRAIN_SHAPE)):
+        t = times[what] = _ba_time(shape, flushes)
+        torch.cuda.empty_cache()
+        say(f"bn_act_eval time {what} {shape} bf16 nchw relu: kernel {t['kernel']:.4f} ms L2-cold "
+            f"(a 128 MB write between calls, its time subtracted), bound {t['bound']:.4f} ms "
+            f"({t['bytes'] / 1e6:.1f} MB at 3.35 TB/s): {t['bound'] / t['kernel']:.1%} of it; "
+            f"plain chain {t['plain']:.4f} ms")
+    counts = {}
+    for shape, _, _, _ in decode:
+        counts[shape] = counts.get(shape, 0) + 1
+    per_decode = {"kernel": 0.0, "plain": 0.0, "bound": 0.0}
+    for shape, n in counts.items():
+        t = _ba_time(shape, flushes)
+        for k in per_decode:
+            per_decode[k] += n * t[k]
+        torch.cuda.empty_cache()
+    del scratch
+    say(f"bn_act_eval a B=8 decode: {len(decode)} calls ({len(counts)} shapes): kernel "
+        f"{per_decode['kernel']:.4f} ms, plain chain {per_decode['plain']:.4f} ms, bound "
+        f"{per_decode['bound']:.4f} ms (sums of L2-cold calls)")
+    return {"worst": worst, "paths": paths, "times": times, "largest": largest[0],
+            "per_decode": per_decode}
 
 
 def phase_slice():
@@ -3926,6 +4183,7 @@ def main() -> None:
     phase_build()
     errs, times = phase_kernels()
     up = phase_upsample()
+    bn = phase_bn_act()
     launches, cfg, trainer = phase_slice()
     layout, _ = phase_in_context(cfg)
     dp_outs, k3_err = phase_dp(cfg)
@@ -4028,6 +4286,21 @@ def main() -> None:
              "plain_ms_train": tt["plain"], "bound_ms_train": tt["bound"],
              "library_ms_train": tt["library"], "share_of_bound_train": tt["bound"] / tt["kernel"],
              "per_unit": {w: v for (w, kk), v in up["per_unit"].items() if kk == k}})
+    # the BN epilogue: at the eval's largest call and a train-sized eval call
+    t, tt = bn["times"]["eval's largest"], bn["times"]["train-sized eval"]
+    kernels.append(
+        {"name": "bn_act_eval", "route": "cuda", "source": BA_SOURCE, "replaces": None,
+         "launches": bn["paths"][EXPERIMENT, "sample", 8][1],
+         "launches_sampler_b1": bn["paths"][EXPERIMENT, "sample", 1][1],
+         "launches_probunet_sampler": bn["paths"]["probunet_synth", "sample", 8][1],
+         "launches_train_step": bn["paths"][EXPERIMENT, "train", 12][1],
+         "min_bitwise_share": bn["worst"][0], "max_err": bn["worst"][1],
+         "max_err_unit": "ulp of the output dtype", "shape": list(bn["largest"]),
+         "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"], "bound_by": "bytes",
+         "library_ms": None, "share_of_bound": t["bound"] / t["kernel"],
+         "shape_train": list(BA_TRAIN_SHAPE), "ms_train": tt["kernel"],
+         "plain_ms_train": tt["plain"], "bound_ms_train": tt["bound"],
+         "share_of_bound_train": tt["bound"] / tt["kernel"], "per_decode": bn["per_decode"]})
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from phiseg_tpu_torch.nn.normalization import BatchRenorm
+from phiseg_tpu_torch.ops.bn_act_eval import bn_act_eval
 from phiseg_tpu_torch.ops.upsample_bilinear2x import upsample_bilinear2x
 
 # Flax BatchNorm(momentum=.99, epsilon=1e-3) (layers.py:164-169): the running
@@ -389,8 +390,9 @@ class _Normalised(nn.Module):
     """The norm of a conv block, applied to its conv's output by the block's
     own norm modules (the Flax scopes `bn`, `gn`, `ln`, `brn`, `in_scale` /
     `in_offset`): one dispatch for ConvBlock and the transposed, dilated and
-    3-D blocks, which accept a subset of the names (TAIL_NORMS). The
-    subclass sets `norm` and `dtype`."""
+    3-D blocks, which accept a subset of the names (TAIL_NORMS), and the
+    norm-and-activation tail that both call (`_norm_act`). The subclass sets
+    `norm`, `activation` and `dtype`."""
 
     def _normalise(self, x: torch.Tensor) -> torch.Tensor:
         if self.norm == "batch":
@@ -413,6 +415,32 @@ class _Normalised(nn.Module):
             scale = self.in_scale.to(x.dtype)[None, :, None, None]
             return x * (1.0 + scale) + self.in_offset.to(x.dtype)[None, :, None, None]
         return x
+
+    def _takes_bn_act_kernel(self, x: torch.Tensor) -> bool:
+        """Whether the norm and activation of the conv output `x` run as one
+        bn_act_eval kernel: an eval-mode batch norm (batch or batch_bf16)
+        followed by ReLU or nothing, on a bf16 or f32 CUDA tensor in the
+        block's dtype, with no gradient wanted. That kernel computes the
+        chain's function (for batch_bf16 too: ReLU commutes with the rounding
+        to bf16); every other input takes the chain."""
+        if self.training or self.norm not in ("batch", "batch_bf16") or not x.is_cuda:
+            return False
+        if self.activation not in (F.relu, None) or x.dtype != self.dtype:
+            return False
+        if x.dtype not in (torch.bfloat16, torch.float32):
+            return False
+        return not torch.is_grad_enabled() or not (
+            x.requires_grad or self.bn.weight.requires_grad or self.bn.bias.requires_grad)
+
+    def _norm_act(self, x: torch.Tensor) -> torch.Tensor:
+        """The norm, then the activation, of the conv output `x`; where
+        `_takes_bn_act_kernel`, both in one kernel written into x."""
+        if self._takes_bn_act_kernel(x):
+            bn = self.bn
+            return bn_act_eval(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, BN_EPS,
+                               relu=self.activation is not None)
+        x = self._normalise(x)
+        return x if self.activation is None else self.activation(x)
 
 
 class ConvBlock(_Normalised):
@@ -482,10 +510,7 @@ class ConvBlock(_Normalised):
         x = x.to(self.dtype)
         if self.conv.stride != (1, 1):
             x = F.pad(x, _same_pads(x.shape[2:], self.conv.kernel_size, self.conv.stride))
-        x = F.conv2d(x, w, b, stride=self.conv.stride, padding=self.conv.padding)
-        x = self._normalise(x)
-        if self.activation is not None:
-            x = self.activation(x)
+        x = self._norm_act(F.conv2d(x, w, b, stride=self.conv.stride, padding=self.conv.padding))
         if self.dropout_keep_prob is not None and self.training:
             if generator is None:
                 raise ValueError("dropout in training needs the generator of its mask")
@@ -612,10 +637,7 @@ class _ConvNormAct(_Normalised):
         x = self._conv(x.to(self.dtype), conv.weight.to(self.dtype))
         if conv.bias is not None:
             x = x + conv.bias.to(self.dtype).view(-1, *([1] * (x.dim() - 2)))
-        x = self._normalise(x)
-        if self.activation is not None:
-            x = self.activation(x)
-        return x.to(self.dtype)
+        return self._norm_act(x).to(self.dtype)
 
 
 class TransposedConvBlock(_ConvNormAct):
