@@ -227,6 +227,10 @@ Phases, each fatal on failure:
      first), after a kernel step against plain steps at one rank's shapes
      (64x64, n0=4, f32, batch 2), held as in phase 13. The train
      subprocess reports its launches: K1 and K2 once a step.
+ 23. Stochastic Segmentation Networks at full width: one f32 step (a CUDA
+     graph) and one f64 step against reference_torch/ssn.py, then
+     SSN_STEPS bf16 steps through the Trainer with one validation, every
+     step a replay, the losses finite and falling (phase_ssn).
 
 Spawned ranks have a join timeout; a rank that fails or hangs fails the run.
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -4169,6 +4173,114 @@ def phase_entry_points(phiseg_log: str, probunet_log: str):
     return out
 
 
+SSN_EXPERIMENT = "ssn_synth"
+SSN_STEPS = 500          # phase 23: bf16 steps through the Trainer, one CUDA graph
+SSN_VAL_FREQ = 400       # ... validating once, at this step
+SSN_REF_TOL = {"float32": 1e-5, "float64": 1e-9}  # phase 23: the loss's relative gap
+
+
+def _ssn_reference_step(dtype: str, captured: bool) -> dict:
+    """One train step of SSN_EXPERIMENT at full width (R=7, n0=32, rank 10,
+    batch 12, 128x128) in `dtype`, TF32 off, no augmentation, through
+    make_train_step (a CUDA graph where `captured`), against
+    reference_torch/ssn.py from the same weights, batch and generator state:
+    the loss's relative gap and the all-parameter relative L2 of the
+    gradients (read from the parameters' .grad after the step)."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine import step_graph
+    from phiseg_tpu_torch.engine.train import create_train_state, make_train_step
+    from phiseg_tpu_torch.experiments import get_experiment
+    from reference_torch import ssn as R
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = get_experiment(SSN_EXPERIMENT).replace(compute_dtype=dtype, augmentation_options={})
+    x, s = get_dataset(cfg).train.next_batch(cfg.batch_size)
+    x, s = torch.from_numpy(x).cuda(), torch.from_numpy(s.astype(np.uint8)).cuda()
+    state = create_train_state(cfg, "cuda")
+    state.model.to(cfg.dtype)
+    params = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 1)
+    gen_ref = torch.Generator(device="cuda")
+    gen_ref.set_state(gen.get_state())
+    step_graph.reset_counts()
+    losses = make_train_step(cfg, capture=captured)(state, x, s, gen)
+    counts = dict(step_graph.COUNTS)
+    got = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+    want, grads = R.grad_step(json.loads(cfg.to_json()), params, x, s.long(),
+                              lambda shape: torch.randn(shape, generator=gen_ref, device="cuda",
+                                                        dtype=cfg.dtype))
+    loss_gap = abs(float(losses["total_loss"]) - float(want["total_loss"])) \
+        / abs(float(want["total_loss"]))
+    grad = _rel_l2(got, grads)
+    by_tensor = {n: _rel_l2({n: got[n]}, {n: grads[n]}) for n in grads if grads[n].any()}
+    worst = max(by_tensor, key=by_tensor.get)
+    say(f"ssn phase, one {dtype} step vs reference_torch/ssn.py ({'graph' if captured else 'eager'}"
+        f", counts {counts}): loss {float(losses['total_loss']):.9g} vs "
+        f"{float(want['total_loss']):.9g}, relative gap {loss_gap:.3e}; gradients relative L2 "
+        f"all {grad:.3e}, worst tensor {worst} {by_tensor[worst]:.3e}; summaries "
+        f"{ {k: round(float(v), 6) for k, v in losses.items()} }; generator states equal "
+        f"{torch.equal(gen.get_state(), gen_ref.get_state())}")
+    if not loss_gap <= SSN_REF_TOL[dtype] or not torch.equal(gen.get_state(), gen_ref.get_state()):
+        fail(f"ssn phase: the {dtype} step's loss parts from the reference's")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss_gap": loss_gap, "grad_rel_l2": grad, "worst": [worst, by_tensor[worst]],
+            "counts": counts}
+
+
+def phase_ssn():
+    """23. Stochastic Segmentation Networks (models/ssn.py) at full width:
+    one f32 step as a CUDA graph and one f64 step eagerly against
+    reference_torch/ssn.py (the loss within SSN_REF_TOL; the gradients'
+    relative L2 printed), then SSN_STEPS bf16 steps of SSN_EXPERIMENT with
+    on-device augmentation through the Trainer, one capture and a replay a
+    step, validating once at SSN_VAL_FREQ: the losses finite and falling,
+    the validation's metrics finite."""
+    import numpy as np
+    import torch
+
+    from phiseg_tpu_torch.data import get_dataset
+    from phiseg_tpu_torch.engine import step_graph
+    from phiseg_tpu_torch.engine.trainer import Trainer
+    from phiseg_tpu_torch.experiments import get_experiment
+
+    out = {d: _ssn_reference_step(d, d == "float32") for d in ("float32", "float64")}
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = get_experiment(SSN_EXPERIMENT).replace(validation_frequency=SSN_VAL_FREQ,
+                                                 tensorboard_update_frequency=50,
+                                                 do_image_summaries=False,
+                                                 do_histogram_summaries=False)
+    log_dir = os.path.join(OUT_DIR, "ssn")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    step_graph.reset_counts()
+    trainer = Trainer(cfg, log_dir=log_dir, device="cuda", resume=False)
+    t0 = time.perf_counter()
+    trainer.train(get_dataset(cfg), num_iter=SSN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(step_graph.COUNTS)
+    lines = [json.loads(line) for line in open(os.path.join(log_dir, "metrics.jsonl"))]
+    batch = [(r["step"], r["batch_total_loss"]) for r in lines if "batch_total_loss" in r]
+    val = [r for r in lines if "validation_GED" in r]
+    losses = [v for _, v in batch]
+    say(f"ssn phase, {SSN_STEPS} {cfg.compute_dtype} steps through the Trainer in {wall:.1f} s: "
+        f"step_graph counts {counts} (replayed share {counts['replays'] / SSN_STEPS:.3f}); "
+        f"total loss by step {[(k, round(v, 2)) for k, v in batch]}; validations "
+        f"{[(r['step'], {k: r[k] for k in r if k.startswith('validation_')}) for r in val]}")
+    falling = np.mean(losses[-3:]) < np.mean(losses[:3])
+    if (not np.isfinite(losses).all() or not falling or counts["replays"] != SSN_STEPS
+            or len(val) != 1 or not all(np.isfinite(v) for k, v in val[0].items()
+                                        if k in ("validation_GED", "validation_dice_mean_score"))):
+        fail("ssn phase: the Trainer run's losses, replays or validation")
+    out["train"] = {"wall_s": wall, "counts": counts, "first": losses[:3], "last": losses[-3:],
+                    "validation": val[0]}
+    return out
+
+
 def _entry_launches(entry_points, key: str) -> dict:
     """One kernel's launches on each path of phase 22."""
     launches = entry_points["launches"]
@@ -4206,6 +4318,7 @@ def main() -> None:
     bf16 = phase_batch_bf16()
     resumed = phase_jax_resume()
     entry_points = phase_entry_points(val["log_dir"], fam[FAMILY_EXPERIMENTS[0]]["log_dir"])
+    phase_ssn()
 
     import torch
 

@@ -54,7 +54,7 @@ class ExperimentConfig:
     log_dir_name: str = "lidc"
 
     # -- architecture (ref phiseg_7_5.py:8-19)
-    model_family: str = "phiseg"  # phiseg | prob_unet | det_unet | hpu_net
+    model_family: str = "phiseg"  # phiseg | prob_unet | det_unet | hpu_net | ssn
     latent_levels: int = 5
     resolution_levels: int = 7
     n0: int = 32
@@ -156,7 +156,10 @@ class ExperimentConfig:
     @property
     def effective_latent_levels(self) -> int:
         """The latent levels the model has: latent_levels for PHiSeg and the
-        HPU-Net, 1 for the (probabilistic) U-Nets."""
+        HPU-Net, 1 for the (probabilistic) U-Nets, 2 for SSN (its sampler's
+        two noises, one a logit and one of the rank zdim0)."""
+        if self.model_family == "ssn":
+            return 2
         return self.latent_levels if self.model_family in ("phiseg", "hpu_net") else 1
 
     def replace(self, **kw) -> "ExperimentConfig":

@@ -14,7 +14,9 @@ where the means over a global array are global by construction).
 
 The HPU-Net trains on `geco_objective` instead (deepmind-research
 hierarchical_probabilistic_unet/model.py `loss`, geco_utils.py `ce_loss`),
-with the constants of models/hpunet.py.
+with the constants of models/hpunet.py; SSN on `ssn_objective`
+(biomedia-mira/stochastic_segmentation_networks ssn/loss.py), with those of
+models/ssn.py.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch import nn
 from phiseg_tpu_torch.engine.config import ExperimentConfig
 from phiseg_tpu_torch.models.hpunet import KAPPA, TOP_K_SHARE
 from phiseg_tpu_torch.models.segvae import ModelOutputs
+from phiseg_tpu_torch.models.ssn import MC_SAMPLES, SSNOutputs
 from phiseg_tpu_torch.nn.layers import at_least_f32
 from phiseg_tpu_torch.nn.losses import kl_two_gauss_diag_cov
 from phiseg_tpu_torch.ops.fused_residual_ce import (
@@ -192,4 +195,64 @@ def geco_objective(outputs: ModelOutputs, s_oh: torch.Tensor, model: nn.Module,
     loss_dict = {"rec_loss_sum": rec_sum, "rec_loss_mean": rec_mean, "kl_sum": kl_sum, **kls,
                  "ma_rec_loss_mean": ma / num_valid, "num_valid_pixels": num_valid,
                  "lagmul": lagmul, "total_loss": total}
+    return total, loss_dict
+
+
+def antithetic_logits(outputs: SSNOutputs, eps_d: torch.Tensor, eps_w: torch.Tensor
+                      ) -> torch.Tensor:
+    """The 2 K draws (2 K, B, N) of SSN's logits, class-major, of K noises
+    eps_d (K, B, H, W, C) and eps_w (K, B, R): mu + r_k for k < K, then
+    mu - r_k, where r_k = W eps_w,k + sqrt(D) eps_d,k."""
+    mu, factor, diag = outputs.mean, outputs.cov_factor, outputs.cov_diag
+    k, b = eps_w.shape[:2]
+    noise_d = eps_d.to(mu.dtype).permute(0, 1, 4, 2, 3).reshape(k, b, -1)  # class-major, as mu
+    r = torch.einsum("bnr,kbr->kbn", factor, eps_w.to(mu.dtype)) + diag.sqrt() * noise_d
+    return torch.cat([mu + r, mu - r])
+
+
+def ssn_objective(outputs: SSNOutputs, s_oh: torch.Tensor, model: nn.Module,
+                  generator: Optional[torch.Generator] = None,
+                  eps: Optional[Sequence[torch.Tensor]] = None, mesh=None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """SSN's Monte Carlo loss over M = MC_SAMPLES draws of the logits, half
+    of them antithetic (ssn/loss.py StochasticSegmentationNetworkLossMCIntegral
+    with its fixed_re_parametrization_trick): r_m = W eps_W,m + sqrt(D)
+    eps_D,m for m < M/2, eta_m = mu + r_m and eta_{m+M/2} = mu - r_m,
+    log p_m(b) = -(the CE of eta_m against image b's labels, summed over its
+    pixels), loss = -mean_b (logsumexp_m log p_m(b) - log M). There is no KL
+    term. The summaries:
+
+      ssn_loglik          the batch mean of logsumexp_m log p_m(b) - log M;
+      ssn_ce_mean         the mean over the M draws and the batch of an
+                          image's summed CE;
+      ssn_cov_diag_mean   the mean of D;
+      ssn_cov_factor_rms  the root mean square of W's entries;
+      total_loss          the loss.
+
+    The M/2 draws come from `generator` after the forward's (which draws
+    none; in a train step, after the augmentation's): eps_D of (M/2, B, H,
+    W, C), then eps_W of (M/2, B, R), in the model's compute dtype, the
+    shapes of `model.latent_shapes(B)` with a leading M/2. `eps` = (eps_D,
+    eps_W) of those shapes injects them instead. The draw is written out,
+    with no torch.distributions object, whose constructor factorises the
+    capacitance matrix with a check that waits for the host, so that the
+    step stays one CUDA graph. Span `train_step.ssn_loss` around it all."""
+    if mesh is not None:
+        raise NotImplementedError("the SSN objective runs on one rank's whole batch")
+    mu, factor, diag = outputs.mean, outputs.cov_factor, outputs.cov_diag
+    b = mu.shape[0]
+    half = MC_SAMPLES // 2
+    with span("train_step.ssn_loss"):
+        if eps is None:
+            eps = [torch.randn((half, *shape), generator=generator, device=mu.device,
+                               dtype=model.dtype) for shape in model.latent_shapes(b)]
+        c = s_oh.shape[-1]
+        logits = antithetic_logits(outputs, *eps).reshape(MC_SAMPLES, b, c, -1)
+        labels = s_oh.to(mu.dtype).permute(0, 3, 1, 2).reshape(b, c, -1)
+        ce = -(labels * F.log_softmax(logits, dim=2)).sum(dim=(2, 3))  # (M, B)
+        loglik = torch.logsumexp(-ce, dim=0) - math.log(MC_SAMPLES)
+        total = -loglik.mean()
+    loss_dict = {"ssn_loglik": loglik.mean(), "ssn_ce_mean": ce.mean(),
+                 "ssn_cov_diag_mean": diag.mean(),
+                 "ssn_cov_factor_rms": factor.square().mean().sqrt(), "total_loss": total}
     return total, loss_dict

@@ -33,12 +33,12 @@ step drops the old graph and captures again. A capture
      and leaves it where the eager step would, bit for bit.
 
 The kernels' launch counters (`fused_residual_ce.LAUNCHES`,
-`upsample_bilinear2x.LAUNCHES`) count host calls: the warm-up's and the
-capture's are taken back, and each replay adds the capture's, so they count
-the kernels run. `COUNTS` counts the process's captures, replays and eager
-steps. Spans: `train_step.capture` around a capture (its warm-up included),
-`train_step.replay` around a replay; the step's phase spans fire only in a
-capture.
+`upsample_bilinear2x.LAUNCHES`, `bn_act_eval.LAUNCHES`) count host calls:
+the warm-up's and the capture's are taken back, and each replay adds the
+capture's, so they count the kernels run. `COUNTS` counts the process's
+captures, replays and eager steps. Spans: `train_step.capture` around a
+capture (its warm-up included), `train_step.replay` around a replay; the
+step's phase spans fire only in a capture.
 """
 
 from __future__ import annotations
@@ -50,12 +50,13 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from phiseg_tpu_torch.ops import fused_residual_ce, upsample_bilinear2x
+from phiseg_tpu_torch.ops import bn_act_eval, fused_residual_ce, upsample_bilinear2x
 from phiseg_tpu_torch.utils.profiling import span
 
 WARMUP_STEPS = 2  # eager steps of the throwaway copy before a capture
 COUNTS: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
-_LAUNCH_COUNTERS = (fused_residual_ce.LAUNCHES, upsample_bilinear2x.LAUNCHES)
+_LAUNCH_COUNTERS = (fused_residual_ce.LAUNCHES, upsample_bilinear2x.LAUNCHES,
+                    bn_act_eval.LAUNCHES)
 # the optimisers whose update a capture holds: their state is made before it
 CAPTURED_OPTIMIZERS = (torch.optim.Adam, torch.optim.SGD)
 
@@ -106,11 +107,13 @@ class CudaGraph:
             fn()
         current.wait_stream(self.stream)
 
-    def capture(self, fn: Callable[[], torch.Tensor], generator: torch.Generator) -> torch.Tensor:
-        """Capture `fn`'s work, drawing from `generator` at each replay; its
-        result is the graph's static output. Other threads (a prefetch
-        thread) may go on using the card meanwhile."""
-        self.graph.register_generator_state(generator)
+    def capture(self, fn: Callable[[], object],
+                generator: Optional[torch.Generator] = None) -> object:
+        """Capture `fn`'s work, drawing from `generator` (if any) at each
+        replay; its result is the graph's static output. Other threads (a
+        prefetch thread) may go on using the card meanwhile."""
+        if generator is not None:
+            self.graph.register_generator_state(generator)
         with torch.cuda.graph(self.graph, stream=self.stream, capture_error_mode="thread_local"):
             return fn()
 

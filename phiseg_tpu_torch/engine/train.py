@@ -15,15 +15,15 @@ eval batch-norm mode, where the JAX package vmaps a decode over S keys.
 Spans (utils/profiling.span; nothing but one check each with no profiler
 running) name the phases: `train_step` (unit: the state's step) with
 `train_step.augment`, `.forward` (one-hot, forward, objective; the
-HPU-Net's `.geco` inside it), `.backward` (zero_grad, backward),
-`.grad_allreduce` (under a mesh) and `.optimizer` (the rate and the
-update), which a step made of a CUDA graph runs only at its capture, inside
-`train_step.capture`; its other calls are `train_step.replay`. The
-sampler's `sample.encode`, `sample.decode` (noise, the S x B decode, the
-level sum; `sample.decode.tile` around the cache's tiling inside it, and
-the HPU-Net's `.latents` and `.stitch`), `sample.softmax` and
-`sample.assemble` (under a mesh), with CUDA events on x's device and the
-sampler's call count as their unit.
+HPU-Net's `.geco` and SSN's `.ssn_loss` inside it), `.backward`
+(zero_grad, backward), `.grad_allreduce` (under a mesh) and `.optimizer`
+(the rate and the update), which a step made of a CUDA graph runs only
+at its capture, inside `train_step.capture`; its other calls are
+`train_step.replay`. The sampler's `sample.encode`, `sample.decode` (noise,
+the S x B decode, the level sum; `sample.decode.tile` around the cache's
+tiling inside it, the HPU-Net's `.latents` and `.stitch`, SSN's
+`.lowrank`), `sample.softmax` and `sample.assemble` (under a mesh), with
+CUDA events on x's device and the sampler's call count as their unit.
 """
 
 from __future__ import annotations
@@ -38,8 +38,9 @@ import torch
 
 from phiseg_tpu_torch.engine import step_graph
 from phiseg_tpu_torch.engine.config import ExperimentConfig
-from phiseg_tpu_torch.engine.objective import geco_objective, phiseg_objective
-from phiseg_tpu_torch.models import HPUNet, SegVAE, aggregate_levels, model_class
+from phiseg_tpu_torch.engine.objective import geco_objective, phiseg_objective, ssn_objective
+from phiseg_tpu_torch.engine.replay_graph import ReplayGraph
+from phiseg_tpu_torch.models import SSN, HPUNet, SegVAE, aggregate_levels, model_class
 from phiseg_tpu_torch.nn.layers import set_batch_norm_mesh
 from phiseg_tpu_torch.nn.losses import one_hot
 from phiseg_tpu_torch.parallel.mesh import DeviceLike, resolve_device
@@ -140,7 +141,10 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     whose top-k draws one uniform a pixel from `generator` after the
     posterior's normals (augmentation, then the posterior's levels from the
     coarsest, then the uniforms), and clamps its multiplier at >= 0 after
-    the optimiser's step. It takes no mesh.
+    the optimiser's step. It takes no mesh. SSN (models.SSN) trains on
+    objective.ssn_objective, whose Monte Carlo draws come from `generator`
+    after the augmentation's (eps_D, then eps_W), or from `eps` (eps_D,
+    eps_W) with a leading M/2; it takes no mesh either.
 
     With a mesh (parallel.mesh.Mesh), x and s are this rank's shard of the
     global batch, batch norm is sync-BN, the losses are global means, and
@@ -149,7 +153,6 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     """
     lr_fn = lr_schedule_from_dict(cfg.lr_schedule)
     sync_bn_model = None  # the model whose batch norms this step made sync-BN
-    geco = _trains_on_geco(cfg)
 
     def one_step(state: TrainState, x: torch.Tensor, s: torch.Tensor,
                  generator: Optional[torch.Generator], eps: Optional[Sequence[torch.Tensor]],
@@ -167,8 +170,8 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
                 set_batch_norm_mesh(model, mesh)
                 sync_bn_model = model
             outputs = model(x, s_oh, eps=eps, generator=generator)
-            loss, loss_dict = _objective(cfg, geco, outputs, s_oh, model, generator, fused,
-                                         mesh)
+            loss, loss_dict = _objective(cfg, outputs, s_oh, model, generator, fused, mesh,
+                                         eps)
         with span("train_step.backward"):
             opt.zero_grad(set_to_none=True)
             loss.backward()
@@ -179,7 +182,7 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
             for group in opt.param_groups:
                 group["lr"] = lr
             opt.step()
-            if geco:
+            if isinstance(model, HPUNet):
                 model.geco.clamp_()
         return loss_dict
 
@@ -204,16 +207,15 @@ def make_train_step(cfg: ExperimentConfig, augment_fn: Optional[AugmentFn] = Non
     return step
 
 
-def _trains_on_geco(cfg: ExperimentConfig) -> bool:
-    """Whether the config's family trains on GECO: the HPU-Net's class."""
-    return issubclass(model_class(cfg.model_family), HPUNet)
-
-
-def _objective(cfg: ExperimentConfig, geco: bool, outputs, s_oh: torch.Tensor, model: SegVAE,
-               generator: Optional[torch.Generator], use_fused_ce: bool, mesh=None):
-    """The family's objective: GECO for the HPU-Net, PHiSeg's for the others."""
-    if geco:
+def _objective(cfg: ExperimentConfig, outputs, s_oh: torch.Tensor, model: SegVAE,
+               generator: Optional[torch.Generator], use_fused_ce: bool, mesh=None,
+               eps: Optional[Sequence[torch.Tensor]] = None):
+    """The family's objective: GECO for the HPU-Net, the Monte Carlo loss
+    for SSN (its draws `eps` or from `generator`), PHiSeg's for the others."""
+    if isinstance(model, HPUNet):
         return geco_objective(outputs, s_oh, model, generator, mesh)
+    if isinstance(model, SSN):
+        return ssn_objective(outputs, s_oh, model, generator, eps, mesh)
     return phiseg_objective(outputs, s_oh, cfg, model=model, use_fused_ce=use_fused_ce, mesh=mesh)
 
 
@@ -230,16 +232,16 @@ def make_eval_loss_fn(model: SegVAE, cfg: ExperimentConfig):
     eval_loss(x, s, generator=None, eps=None) -> loss dict of detached
     tensors. The CE goes through K1 by `fused_ce_rule` of
     `cfg.use_fused_loss_kernel`; the HPU-Net's GECO loss reads its moving
-    average without advancing it."""
-    geco = _trains_on_geco(cfg)
+    average without advancing it; SSN's draws come after the forward's, or
+    are `eps`."""
 
     def eval_loss(x: torch.Tensor, s: torch.Tensor, generator: Optional[torch.Generator] = None,
                   eps: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         s_oh = one_hot(s, cfg.nlabels)
         with torch.no_grad(), _eval_mode(model):
             outputs = model(x, s_oh, eps=eps, generator=generator)
-            _, loss_dict = _objective(cfg, geco, outputs, s_oh, model, generator,
-                                      fused_ce_rule(cfg.use_fused_loss_kernel, x))
+            _, loss_dict = _objective(cfg, outputs, s_oh, model, generator,
+                                      fused_ce_rule(cfg.use_fused_loss_kernel, x), eps=eps)
         return loss_dict
 
     return eval_loss
@@ -300,25 +302,36 @@ def _assemble(part: torch.Tensor, num_samples: int, lo: int, mesh) -> torch.Tens
     return mesh.all_reduce_(full)
 
 
+def replays_sampler(model) -> bool:
+    """Whether the model's sampler encoder and eval metrics replay CUDA
+    graphs on the card: its `replay_sampler`, which SSN sets; a model
+    without one does not."""
+    return getattr(model, "replay_sampler", False)
+
+
 def make_sample_fn(model: SegVAE, num_samples: int, return_probs: bool = True, mesh=None):
     """N-sample prior inference (ref engine/train.py:210-240): build
     sample(x, generator=None, eps=None) -> (S, B, H, W, C) f32 softmax
     probabilities (or logits).
 
     x (B,H,W,Cin) is encoded once and the S draws are decoded as one S x B
-    batch, in eval batch-norm mode, without autograd. With a mesh, each rank
-    decodes S/N of the draws from the same cache and every rank returns all
-    S.
+    batch, in eval batch-norm mode, without autograd; the encoder of a model
+    with `replay_sampler` set (SSN) is replayed from a CUDA graph on the card
+    (engine/replay_graph.py). With a mesh, each rank decodes S/N of the
+    draws from the same cache and every rank returns all S.
     """
     lo, hi = _draw_range(num_samples, mesh)
     calls = itertools.count()
+    encode = model.sample_cache
+    if replays_sampler(model):
+        encode = ReplayGraph(encode, itertools.chain(model.parameters(), model.buffers()))
 
     def sample(x: torch.Tensor, generator: Optional[torch.Generator] = None,
                eps: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         unit, dev = next(calls), x.device
         with torch.no_grad(), _eval_mode(model):
             with span("sample.encode", unit, dev):
-                cache = model.sample_cache(x)
+                cache = encode(x)
             with span("sample.decode", unit, dev):
                 out = aggregate_levels(_decode_draws(model, cache, x, num_samples, lo, hi,
                                                      generator, eps))

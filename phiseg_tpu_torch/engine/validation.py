@@ -32,7 +32,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from phiseg_tpu_torch.engine.config import ExperimentConfig
-from phiseg_tpu_torch.engine.train import make_eval_loss_fn, make_sample_fn
+from phiseg_tpu_torch.engine.replay_graph import ReplayGraph
+from phiseg_tpu_torch.engine.train import make_eval_loss_fn, make_sample_fn, replays_sampler
 from phiseg_tpu_torch.metrics import (
     dice_per_label,
     ged_terms,
@@ -61,12 +62,24 @@ def make_quant_eval_fn(model: SegVAE, cfg: ExperimentConfig, num_samples: int, m
     (B,M,H,W). ged_terms are (d_sy, d_ss, d_yy) of the same pairwise
     distances, GED^2 = 2*d_sy - d_ss - d_yy. With a mesh, each rank decodes
     its share of the draws and every rank computes the metrics on all of
-    them.
+    them. For a model with `replay_sampler` set (SSN) the metrics stage, as
+    the sampler's encoder, is replayed from a CUDA graph on the card
+    (engine/replay_graph.py).
     """
     nlabels = cfg.nlabels
     label_range = tuple(range(1, nlabels))
     sample = make_sample_fn(model, num_samples, mesh=mesh)
     calls = itertools.count()
+
+    def metrics(probs: torch.Tensor, s_annotators: torch.Tensor):
+        probs_b, masks_b = _draws_by_image(probs)
+        d_sy, d_ss, d_yy = ged_terms(masks_b, s_annotators, nlabels=nlabels - 1,
+                                     label_range=label_range)
+        ged_b = 2.0 * d_sy - d_ss - d_yy
+        sncc_b = variance_ncc_dist(probs_b, one_hot(s_annotators, nlabels))
+        return ged_b, sncc_b, torch.stack([d_sy, d_ss, d_yy], dim=-1)
+
+    score = ReplayGraph(metrics) if replays_sampler(model) else metrics
 
     def quant(x: torch.Tensor, s_annotators: torch.Tensor,
               generator: Optional[torch.Generator] = None, eps: Eps = None
@@ -75,13 +88,8 @@ def make_quant_eval_fn(model: SegVAE, cfg: ExperimentConfig, num_samples: int, m
         with span("eval.sample", unit, x.device):
             probs = sample(x, generator, eps)
         with span("eval.metrics", unit, x.device):
-            probs_b, masks_b = _draws_by_image(probs)
-            d_sy, d_ss, d_yy = ged_terms(masks_b, s_annotators, nlabels=nlabels - 1,
-                                         label_range=label_range)
-            ged_b = 2.0 * d_sy - d_ss - d_yy
-            sncc_b = variance_ncc_dist(probs_b, one_hot(s_annotators, nlabels))
-            terms = torch.stack([d_sy, d_ss, d_yy], dim=-1)
-        return ged_b, sncc_b, terms
+            with torch.no_grad():
+                return score(probs, s_annotators)
 
     return quant
 

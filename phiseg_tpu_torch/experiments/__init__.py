@@ -16,6 +16,13 @@ One entry per reference experiment module (phiseg/experiments/*.py):
                         loss leaves its range within 10 steps at full width
                         (non-finite by step 20 in bf16). The JAX package has
                         no such entry.
+  ssn                -- Stochastic Segmentation Networks (Monteiro et al.
+                        2020): a rank-10 (zdim0) Gaussian over the logits on
+                        the deterministic U-Net above (R=7, n0=32, batch
+                        norm), 20 Monte Carlo samples in the loss (biomedia-
+                        mira/stochastic_segmentation_networks ssn/ssn.py);
+                        batch 12 and Adam 1e-3 as the LIDC jobs above; no KL
+                        term. The JAX package has no such entry.
 
 plus `*_synth` variants of each that swap LIDC for the in-memory synthetic
 dataset (no reference equivalent; used by tests/bench and for running
@@ -90,6 +97,15 @@ hpunet = _register(_base(
     norm="none",
     nlabels=2,
     lr_schedule={0: 1e-4},
+))
+
+ssn = _register(_base(
+    experiment_name="ssn",
+    model_family="ssn",
+    latent_levels=1,
+    resolution_levels=7,
+    zdim0=10,
+    kl_divergence_loss_weight=None,
 ))
 
 phiseg_7_5_1annot = _register(phiseg_7_5.replace(

@@ -250,15 +250,14 @@ class ProbUNetPrior(nn.Module):
         return self.heads(self.encode(x), z_teacher=z_teacher, eps=eps, generator=generator)
 
 
-class _UNetHead(nn.Module):
-    """UNetCore, three 1x1 conv blocks of n0 channels with batch norm
-    (`recomb0..2`) and the 1x1 `prediction` conv, whose logits are cast to
-    f32; the shared layout of both U-Net likelihoods (ref likelihoods.py:
-    10-79, :81-159). `extra` channels join the U-Net's features before the
-    first 1x1 block."""
+class UNetRecomb(nn.Module):
+    """UNetCore and three 1x1 conv blocks of n0 channels with batch norm
+    (`recomb0..2`): the backbone of both U-Net likelihoods (ref
+    likelihoods.py:10-79, :81-159) and of SSN's heads (models/ssn.py).
+    `extra` channels join the U-Net's features before the first 1x1 block."""
 
-    def __init__(self, image_channels: int, n0: int, resolution_levels: int, nlabels: int,
-                 extra: int, norm: str, dtype: torch.dtype):
+    def __init__(self, image_channels: int, n0: int, resolution_levels: int, extra: int,
+                 norm: str, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
         self.unet = UNetCore(image_channels, n0, resolution_levels, norm, dtype)
@@ -266,12 +265,27 @@ class _UNetHead(nn.Module):
         for k in range(3):
             self.add_module(f"recomb{k}", ConvBlock(cin, n0, kernel_size=1, norm=norm, dtype=dtype))
             cin = n0
+
+    def recomb(self, net: torch.Tensor) -> torch.Tensor:
+        """The three 1x1 blocks on `net`. Pass it as a temporary: each
+        block's input is freed once the next block has its output."""
+        for k in range(3):
+            net = getattr(self, f"recomb{k}")(net)
+        return net
+
+
+class _UNetHead(UNetRecomb):
+    """UNetRecomb and the 1x1 `prediction` conv, whose logits are cast to
+    f32 (`_predict` of the recomb blocks' output): the shared layout of both
+    U-Net likelihoods."""
+
+    def __init__(self, image_channels: int, n0: int, resolution_levels: int, nlabels: int,
+                 extra: int, norm: str, dtype: torch.dtype):
+        super().__init__(image_channels, n0, resolution_levels, extra, norm, dtype)
         self.prediction = ConvBlock(n0, nlabels, kernel_size=1, activation=None, norm="none",
                                     dtype=dtype)
 
-    def _tail(self, net: torch.Tensor) -> torch.Tensor:
-        for k in range(3):
-            net = getattr(self, f"recomb{k}")(net)
+    def _predict(self, net: torch.Tensor) -> torch.Tensor:
         return at_least_f32(self.prediction(net))
 
 
@@ -292,7 +306,7 @@ class ProbUNetLikelihood(_UNetHead):
         z = z_list[0].to(self.dtype)  # (B, zdim)
         b, _, h, w = feats.shape
         z_b = z[:, :, None, None].expand(b, z.shape[1], h, w)
-        return (self._tail(torch.cat([feats, z_b], dim=1)),)
+        return (self._predict(self.recomb(torch.cat([feats, z_b], dim=1))),)
 
     def forward(self, z_list: Sequence[torch.Tensor], x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return self.from_features(self.features(x), z_list)
@@ -307,7 +321,7 @@ class DetUNetLikelihood(_UNetHead):
         super().__init__(image_channels, n0, resolution_levels, nlabels, 0, norm, dtype)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
-        return self._tail(self.unet(x.to(self.dtype)))
+        return self._predict(self.recomb(self.unet(x.to(self.dtype))))
 
     def from_features(self, logits: torch.Tensor, z_list=None) -> Tuple[torch.Tensor, ...]:
         del z_list

@@ -1,7 +1,8 @@
 """SegVAE: the combined segmentation VAE of the JAX package's three model
 families (port of phiseg_tpu/models/segvae.py:43-174). The Hierarchical
-Probabilistic U-Net, which the JAX package does not have, is its subclass
-`HPUNet` (models/hpunet.py).
+Probabilistic U-Net and Stochastic Segmentation Networks, which the JAX
+package does not have, are its subclasses `HPUNet` (models/hpunet.py) and
+`SSN` (models/ssn.py).
 
 The training forward takes and returns the JAX layout (NHWC, class axis
 last) and runs NCHW inside. Train or eval batch-norm mode is the module's

@@ -22,8 +22,10 @@ def test_same_fields_and_defaults():
 
 def test_registry_matches_jax_registry():
     """Every JAX experiment is in the port with equal fields; the port's only
-    names beyond them are the HPU-Net's, a family the JAX package lacks."""
-    assert set(list_experiments()) - set(jax_list()) == {"hpunet", "hpunet_synth"}
+    names beyond them are the HPU-Net's and SSN's, families the JAX package
+    lacks."""
+    assert set(list_experiments()) - set(jax_list()) == {"hpunet", "hpunet_synth", "ssn",
+                                                         "ssn_synth"}
     assert set(jax_list()) <= set(list_experiments())
     for name in jax_list():
         assert dataclasses.asdict(get_experiment(name)) == dataclasses.asdict(jax_get(name)), name

@@ -273,8 +273,11 @@ def _cache_as_each_decode_reads_it(model, x, n):
     decode reads it: PHiSeg's prior encoder levels from R-L on (None below)
     and its likelihood's empty cache; the Probabilistic U-Net's prior
     (mu, sigma) and its likelihood's U-Net features; every level of the
-    HPU-Net prior's encoder features."""
+    HPU-Net prior's encoder features; SSN's (mu, W, D) of the B images,
+    untiled (its decode broadcasts them over the draws)."""
     x_c = x.permute(0, 3, 1, 2)
+    if model.model_family == "ssn":
+        return model.likelihood(x_c)
     if model.model_family == "phiseg":
         feats = model.prior.tower(x_c.to(model.dtype))
         d = model.likelihood.lvl_diff

@@ -13,6 +13,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 import torch
 
 torch.set_num_threads(1)
@@ -176,3 +178,24 @@ loaded = sorted(k for k in sys.modules if k.split(".")[0] in
 print("OK", tuple(p.shape), loaded)
 """)
     assert out.strip() == "OK (2, 1, 8, 8, 2) []"
+
+
+@pytest.mark.parametrize("module", ["reference_torch.ssn", "portbench.reference.ssn"])
+def test_the_ssn_references_import_neither_package(module):
+    """Both plain references of SSN import and sample with jax, phiseg_tpu
+    and phiseg_tpu_torch blocked, and turn TF32 off."""
+    out = _run_blocked(r"""
+sys.modules["phiseg_tpu_torch"] = None
+import importlib, torch
+R = importlib.import_module("%s")
+cfg = {"model_family": "ssn", "norm": "batch", "resolution_levels": 3, "n0": 2, "zdim0": 2,
+       "image_size": [8, 8, 1], "nlabels": 2}
+params = {n: torch.randn(s) * 0.1 for n, s, *_ in R.param_spec(cfg)}
+eps = [torch.randn((2, *s)) for s in R.latent_shapes(cfg, 1)]
+p = R.sample_probs(cfg, params, torch.randn(1, 8, 8, 1), eps)
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in
+                ("jax", "phiseg_tpu", "phiseg_tpu_torch") and sys.modules[k] is not None)
+print("OK", tuple(p.shape), loaded, torch.backends.cudnn.allow_tf32,
+      torch.backends.cuda.matmul.allow_tf32)
+""" % module)
+    assert out.strip() == "OK (2, 1, 8, 8, 2) [] False False"
